@@ -1,0 +1,66 @@
+"""The port imports no JAX: every module of the serving slice loads in a
+fresh interpreter without jax, flax or the JAX package."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SLICE_MODULES = (
+    "smap_tpu_torch",
+    "smap_tpu_torch.config",
+    "smap_tpu_torch.runtime",
+    "smap_tpu_torch.camera",
+    "smap_tpu_torch.data.preprocess",
+    "smap_tpu_torch.models.layers",
+    "smap_tpu_torch.models.smap",
+    "smap_tpu_torch.models.refinenet",
+    "smap_tpu_torch.models.convert",
+    "smap_tpu_torch.ops.nms",
+    "smap_tpu_torch.ops.paf",
+    "smap_tpu_torch.ops.association",
+    "smap_tpu_torch.ops.depth",
+    "smap_tpu_torch.ops.refine",
+    "smap_tpu_torch.ops.postprocess",
+    "smap_tpu_torch.ops.kernels",
+    "smap_tpu_torch.inference",
+    "smap_tpu_torch.golden",
+)
+
+
+def test_port_imports_no_jax():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {SLICE_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'smap_tpu', 'cv2', 'triton'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def test_chip_smoke_imports_no_jax_and_needs_a_card():
+    """chip_smoke.py imports nothing of JAX and, with no card, exits
+    non-zero before printing any result."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    code = ("import runpy, sys\n"
+            "try:\n"
+            "    runpy.run_path('chip_smoke.py', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+            "                 ('jax', 'jaxlib', 'flax', 'smap_tpu'))\n"
+            "    assert not bad, bad\n"
+            "    raise\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+    assert "cuda" in out.stderr.lower()
