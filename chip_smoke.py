@@ -17,6 +17,19 @@ exits non-zero with no result line):
    letterboxed uint8 frames: ``run_batch`` calls and one ``run_stream``
    over 4 batches, with the kernels' launch counts, forward / post ms,
    img/s and peak memory; one batch decoded again with the plain versions.
+5. fused kernels: kernel C (stem) and kernel D (bottleneck) against their
+   plain versions on the card in bf16, at the serving shapes (the stem on
+   [16, 512, 832, 3], the bottleneck on [16, 128, 208] with 64 -> 64 -> 256
+   plus projection and 256 -> 64 -> 256 identity), on a stem whose outputs
+   all pool to 0, and on ragged bottleneck shapes; max abs error, share of
+   bit-equal outputs, times of both.
+6. folded serving: ``SMAPInference(quantized="folded", fuse_stem=True,
+   fuse_bottleneck=True)`` at full width on the frames of phase 4, with
+   seeded BatchNorm statistics: 1 stem and 9 bottleneck launches per
+   forward; forward ms of the folded-fused, folded-unfused (cuDNN) and
+   unfolded engines; the folded-fused maps' distance to a float32 forward
+   within 2x the unfolded bf16 engine's + 1e-4; one batch decoded end to
+   end.
 
 The last lines are the kernels' JSON summary, the card's name and power
 limit (nvidia-smi), and ``{"ok": true, "device": {...}}``. Without a CUDA
@@ -47,6 +60,14 @@ PAF_SCORE_ATOL = 1e-5
 # Decode of one batch through the kernels vs through the plain versions:
 # the same tables up to kernel A's summation order.
 DECODE_ATOL = 1e-4
+# Kernel C vs its plain version: the conv's 147 exact products summed in
+# another order; a pooled value near a bf16 rounding point can round the
+# other way, one bf16 ulp (tests/test_fused_stem.py's own bound).
+STEM_ATOL, STEM_RTOL = 2e-2, 1e-2
+# Kernel D vs its plain version: the sums run in another order, which can
+# flip the bf16 rounding of an intermediate y or z and so move an output
+# by up to two bf16 ulps.
+BLOCK_ATOL, BLOCK_RTOL = 1e-2, 1.6e-2
 BATCH = 16
 TIMED_BATCHES = 5
 STREAM_BATCHES = 4
@@ -238,7 +259,16 @@ def letterboxed_frames(rng: np.random.RandomState, n: int, h: int, w: int):
     return frames, [default_scale_dict(1920, 1080, w, h)] * n
 
 
-def phase_serving(dev, card: str):
+def serving_batches(cfg):
+    """The serving phases' frames: TIMED_BATCHES batches of BATCH
+    letterboxed uint8 frames with their scale dicts, from seed 0."""
+    net_h, net_w = cfg.input_shape
+    rng = np.random.RandomState(0)
+    return [letterboxed_frames(rng, BATCH, net_h, net_w)
+            for _ in range(TIMED_BATCHES)]
+
+
+def phase_serving(dev, card: str, batches):
     from smap_tpu_torch.config import Config
     from smap_tpu_torch.inference import SMAPInference
     from smap_tpu_torch.models.smap import init_smap
@@ -249,9 +279,6 @@ def phase_serving(dev, card: str):
     engine = SMAPInference(init_smap(cfg.model, seed=0).state_dict(), cfg,
                            device=dev)
     net_h, net_w = cfg.input_shape
-    rng = np.random.RandomState(0)
-    batches = [letterboxed_frames(rng, BATCH, net_h, net_w)
-               for _ in range(TIMED_BATCHES)]
     log(f"serving: engine up in {time.perf_counter() - t0:.2f} s "
         f"(ModelConfig() {net_h}x{net_w}, {cfg.model.compute_dtype}, "
         f"assoc_peaks {cfg.post.assoc_peaks}, batch {BATCH})")
@@ -303,7 +330,8 @@ def phase_serving(dev, card: str):
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     n_batches = TIMED_BATCHES + n_stream
     if n_stream != STREAM_BATCHES or launches != {
-            "paf_score": n_batches, "associate_limb": 14 * n_batches}:
+            "paf_score": n_batches, "associate_limb": 14 * n_batches,
+            "fused_stem": 0, "fused_bottleneck": 0}:
         raise AssertionError(f"serving: launches {launches} over "
                              f"{n_batches} batches, want 1 and 14 per batch")
 
@@ -336,12 +364,250 @@ def phase_serving(dev, card: str):
     return launches
 
 
+def check_close(got: torch.Tensor, want: torch.Tensor, atol: float,
+                rtol: float, label: str):
+    """(max abs err, share of bit-equal outputs) of a kernel's bf16 result
+    against its plain version's; raises past atol + rtol * |want|."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{label}: {tuple(got.shape)} {got.dtype} vs "
+                             f"plain {tuple(want.shape)} {want.dtype}")
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError(f"{label}: non-finite outputs")
+    err = (g - w).abs()
+    bad = int((err > atol + rtol * w.abs()).sum())
+    if bad:
+        raise AssertionError(f"{label}: {bad} outputs past atol {atol} / "
+                             f"rtol {rtol}, max abs err {float(err.max())}")
+    return float(err.max()), float((got == want).float().mean())
+
+
+def stem_inputs(gen, B, H, W, dev, bias_value=None):
+    x = torch.randn((B, H, W, 3), generator=gen).to(dev, torch.bfloat16)
+    k = (torch.randn((64, 3, 7, 7), generator=gen)
+         * (2.0 / 147) ** 0.5).to(dev, torch.bfloat16)
+    b = (torch.randn((64,), generator=gen) * 0.1 if bias_value is None
+         else torch.full((64,), bias_value))
+    return x, k, b.to(dev)
+
+
+def block_inputs(gen, B, H, W, cin, cm, cout, proj, dev):
+    """Post-ReLU activations and kaiming-scale folded weights in the
+    kernel's layout."""
+    def w(*shape, fan_in):
+        return (torch.randn(shape, generator=gen)
+                * (2.0 / fan_in) ** 0.5).to(dev, torch.bfloat16)
+
+    def bias(n):
+        return (torch.randn((n,), generator=gen) * 0.1).to(dev)
+
+    x = torch.relu(torch.randn((B, H, W, cin), generator=gen)).to(
+        dev, torch.bfloat16)
+    args = [x, w(cin, cm, fan_in=cin), bias(cm),
+            w(3, 3, cm, cm, fan_in=9 * cm), bias(cm),
+            w(cm, cout, fan_in=cm), bias(cout)]
+    if proj:
+        args += [w(cin, cout, fan_in=cin), bias(cout)]
+    return args
+
+
+def phase_fused_kernels(dev, card: str):
+    """Kernels C and D against their plain versions; returns the summary
+    rows (without launches)."""
+    from smap_tpu_torch.ops import kernels
+    from smap_tpu_torch.ops.fused_block import fused_bottleneck
+    from smap_tpu_torch.ops.fused_stem import fused_stem
+
+    gen = torch.Generator().manual_seed(1)
+    rows = {}
+
+    # Kernel C at the serving shape, then a stem whose outputs all relu
+    # to 0 (the pool's padding must not win) at two sizes.
+    x, k, b = stem_inputs(gen, BATCH, 512, 832, dev)
+    err, equal = check_close(fused_stem(x, k, b),
+                             fused_stem(x, k, b, plain=True), STEM_ATOL,
+                             STEM_RTOL, "fused_stem serving shape")
+    ms = cuda_ms(lambda: fused_stem(x, k, b), 20)
+    plain_ms = cuda_ms(lambda: fused_stem(x, k, b, plain=True), 5)
+    log(f"kernels: fused_stem [{BATCH}, 512, 832, 3] -> 64: max abs err "
+        f"{err:.3g}, {equal:.4f} bit-equal; {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms [{card}]")
+    for B, H, W in ((BATCH, 512, 832), (2, 30, 50)):
+        xn, kn, bn = stem_inputs(gen, B, H, W, dev, bias_value=-10.0)
+        got = fused_stem(xn, kn, bn)
+        if not torch.equal(got, fused_stem(xn, kn, bn, plain=True)) or bool(
+                got.float().abs().max() != 0):
+            raise AssertionError(f"fused_stem negative bias [{B}, {H}, {W}]"
+                                 f": outputs are not all exactly 0")
+    log("kernels: fused_stem with bias -10: every output exactly 0, equal "
+        "to plain")
+    rows["fused_stem"] = dict(
+        name="fused_stem_kernel", route="cuda",
+        source="smap_tpu_torch/csrc/fused_stem.cu",
+        replaces="smap_tpu/ops/fused_stem.py:216", max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bit_equal=equal)
+    del x, k, b
+
+    # Kernel D: the serving shapes (timed), then ragged ones.
+    errs, times, equals = [], {}, {}
+    for label, shape, timed in (
+            ("layer1_1 256->64->256 identity", (BATCH, 128, 208, 256, 64,
+                                                256, False), True),
+            ("layer1_0 64->64->256 projection", (BATCH, 128, 208, 64, 64,
+                                                 256, True), True),
+            ("ragged W=13, H=20", (2, 20, 13, 64, 64, 256, True), False),
+            ("H=36 (4 past a tile), W=100", (3, 36, 100, 256, 64, 256,
+                                             False), False)):
+        args = block_inputs(gen, *shape, dev)
+        err, equal = check_close(fused_bottleneck(*args),
+                                 fused_bottleneck(*args, plain=True),
+                                 BLOCK_ATOL, BLOCK_RTOL,
+                                 f"fused_bottleneck {label}")
+        errs.append(err)
+        msg = (f"kernels: fused_bottleneck {label} {list(shape[:3])}: max "
+               f"abs err {err:.3g}, {equal:.4f} bit-equal")
+        if timed:
+            ms = cuda_ms(lambda: fused_bottleneck(*args), 20)
+            plain_ms = cuda_ms(lambda: fused_bottleneck(*args, plain=True), 5)
+            times[shape[6]], equals[shape[6]] = (ms, plain_ms), equal
+            msg += f"; {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]"
+        log(msg)
+    rows["fused_bottleneck"] = dict(
+        name="fused_bottleneck_kernel", route="cuda",
+        source="smap_tpu_torch/csrc/fused_bottleneck.cu",
+        replaces="smap_tpu/ops/fused_block.py:117", max_abs_err=max(errs),
+        ms=times[False][0], plain_ms=times[False][1],
+        ms_proj=times[True][0], plain_ms_proj=times[True][1],
+        bit_equal=equals[False])
+    kernels.reset_launch_counts()
+    return rows
+
+
+def perturbed_state_dict(cfg, seed: int):
+    """``init_smap`` weights with seeded non-identity BatchNorm statistics
+    and conv biases (as tests/test_fused_block.py perturbs them), so that
+    folding moves every weight."""
+    from smap_tpu_torch.models.smap import init_smap
+
+    sd = init_smap(cfg, seed=seed).state_dict()
+    gen = torch.Generator().manual_seed(seed + 1)
+    for key, v in sd.items():
+        if key.endswith("bn.weight"):
+            sd[key] = torch.rand(v.shape, generator=gen) * 0.6 + 0.7
+        elif key.endswith(("bn.bias", "bn.running_mean")):
+            sd[key] = torch.randn(v.shape, generator=gen) * 0.1
+        elif key.endswith("bn.running_var"):
+            sd[key] = torch.rand(v.shape, generator=gen) * 1.5 + 0.5
+        elif key.endswith("conv.bias"):
+            sd[key] = torch.randn(v.shape, generator=gen) * 0.05
+    return sd
+
+
+def rel_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """RMS of a - b over the RMS of b."""
+    return float((a - b).pow(2).mean().sqrt() / (b.pow(2).mean().sqrt()
+                                                 + 1e-9))
+
+
+def phase_folded_serving(dev, card: str, batches):
+    """The BN-folded engine with both fused kernels: launch counts, forward
+    ms beside the folded-unfused and unfolded engines, distance to a
+    float32 forward, one batch decoded end to end."""
+    import dataclasses
+
+    from smap_tpu_torch.config import Config
+    from smap_tpu_torch.inference import SMAPInference
+    from smap_tpu_torch.ops import kernels
+
+    cfg = Config()
+    sd = perturbed_state_dict(cfg.model, seed=0)
+    t0 = time.perf_counter()
+    engines = {
+        "folded-fused": SMAPInference(sd, cfg, device=dev, quantized="folded",
+                                      fuse_stem=True, fuse_bottleneck=True),
+        "folded-unfused": SMAPInference(sd, cfg, device=dev,
+                                        quantized="folded"),
+        "unfolded": SMAPInference(sd, cfg, device=dev)}
+    truth_engine = SMAPInference(sd, dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, compute_dtype="float32")),
+        device=dev)
+    log(f"folded: 4 engines up in {time.perf_counter() - t0:.2f} s")
+    fused = engines["folded-fused"]
+
+    # The main path: folded-fused run_batch calls, counted.
+    for frames, scales in batches[:2]:                      # warm-up
+        fused.results_to_pairs(fused.run_batch(frames, scales), [""] * BATCH)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    people = 0
+    for frames, scales in batches:
+        pairs = fused.results_to_pairs(fused.run_batch(frames, scales),
+                                       [""] * BATCH)
+        people += sum(len(p["pred_3d"]) for p in pairs)
+    t_batch = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    n = len(batches)
+    want = {"paf_score": n, "associate_limb": 14 * n, "fused_stem": n,
+            "fused_bottleneck": 9 * n}
+    if launches != want:
+        raise AssertionError(f"folded: launches {launches} over {n} "
+                             f"batches, want {want}")
+    log(f"folded: launches {launches} over {n} batches (1 stem, 9 "
+        f"bottleneck, 1 paf_score, 14 associate_limb per batch)")
+    log(f"folded: folded-fused run_batch e2e {n * BATCH / t_batch:.1f} "
+        f"img/s, {people} people decoded in {n} batches [{card}]")
+
+    # Forward ms of the three bf16 engines, in turns on the same frames.
+    fwd = {name: [] for name in engines}
+    for e in engines.values():
+        e.forward(e.place(*batches[0])[0])
+    torch.cuda.synchronize()
+    for frames, scales in batches:
+        for name, e in engines.items():
+            t0 = time.perf_counter()
+            e.forward(e.place(frames, scales)[0])
+            torch.cuda.synchronize()
+            fwd[name].append((time.perf_counter() - t0) * 1e3)
+    log(f"folded: forward ms per batch of {BATCH} (mean of "
+        f"{len(batches)}, synchronized): " + ", ".join(
+            f"{name} {np.mean(v):.2f}" for name, v in fwd.items())
+        + f" [{card}]")
+
+    # Distance to the float32 unfolded forward (TF32 off).
+    images = truth_engine.place(*batches[0])[0]
+    truth = truth_engine.forward(images)
+    maps = {name: e.forward(images) for name, e in engines.items()}
+    for i, name in enumerate(("2d", "rel-depth", "root-depth")):
+        noise = rel_err(maps["unfolded"][i], truth[i])
+        errs = {k: rel_err(m[i], truth[i]) for k, m in maps.items()}
+        if not (bool(torch.isfinite(maps["folded-fused"][i]).all())
+                and noise > 0
+                and errs["folded-fused"] <= 2.0 * noise + 1e-4):
+            raise AssertionError(f"folded: {name} map distances to float32 "
+                                 f"{errs}, bound 2 x {noise} + 1e-4")
+        log(f"folded: {name} map, relative distance to float32: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+            + f" (bound {2.0 * noise + 1e-4:.3g})")
+
+    # One batch decoded end to end.
+    res = fused.run_batch(*batches[0])
+    counts = res.count.tolist()
+    if len(counts) != BATCH or not all(
+            bool(torch.isfinite(t).all()) for t in res[:3]):
+        raise AssertionError(f"folded: decode counts {counts}, or "
+                             f"non-finite tables")
+    log(f"folded: one batch decoded end to end, counts {counts}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script needs "
               "a CUDA card", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from smap_tpu_torch.config import Config
     from smap_tpu_torch.ops import kernels
     from smap_tpu_torch.runtime import get_device, set_tf32
 
@@ -361,12 +627,19 @@ def main() -> int:
 
     rows = phase_kernels(dev, card)
     phase_golden(dev)
-    launches = phase_serving(dev, card)
-    for key, row in rows.items():
+    batches = serving_batches(Config())
+    launches = phase_serving(dev, card, batches)
+    for key in ("paf_score", "associate_limb"):
+        rows[key]["launches"] = launches[key]
+    fused_rows = phase_fused_kernels(dev, card)
+    launches = phase_folded_serving(dev, card, batches)
+    for key, row in fused_rows.items():
         row["launches"] = launches[key]
-    summary = [{k: row[k] for k in ("name", "route", "source", "replaces",
-                                    "launches", "max_abs_err", "ms",
-                                    "plain_ms", "ms_k127", "plain_ms_k127")}
+    rows.update(fused_rows)
+    keys = ("name", "route", "source", "replaces", "launches",
+            "max_abs_err", "ms", "plain_ms")
+    summary = [{**{k: row[k] for k in keys},
+                **{k: v for k, v in row.items() if k not in keys}}
                for row in rows.values()]
     log(json.dumps({"kernels": summary}))
     log(card)

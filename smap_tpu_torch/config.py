@@ -7,14 +7,14 @@ and top-level bundles. It is its own module, not an import of
 package (``tests/test_torch_imports.py`` checks that, and
 ``tests/test_torch_config.py`` checks that every value here equals its
 counterpart there). Training settings and the TPU-only knobs
-(``paf_impl``, ``paf_parts``, ``assoc_impl``, ``quantized``, ``remat``)
-are left out, as are values nothing in the port reads.
+(``paf_impl``, ``paf_parts``, ``assoc_impl``, ``remat``) are left out, as
+are values nothing in the port reads.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Any, Tuple
 
 NUM_JOINTS = 15
 
@@ -67,6 +67,18 @@ class ModelConfig:
     # "bfloat16" or "float32": the dtype the forward computes in. Outputs
     # are float32 either way.
     compute_dtype: str = "bfloat16"
+    # False, or "folded": BatchNorm folded into each conv's kernel and bias
+    # (models.quantize.fold_bn_state_dict), the serving mode of the fused
+    # stem and bottleneck kernels. The int8 modes of the JAX package are
+    # not ported yet.
+    quantized: Any = False
+
+    def __post_init__(self):
+        if self.quantized not in (False, "folded"):
+            raise NotImplementedError(
+                f"ModelConfig.quantized={self.quantized!r}: the port serves "
+                f"False and \"folded\"; int8 serving is still to port "
+                f"(ROADMAP.md, queue 1)")
 
     @property
     def kpt_paf_channels(self) -> int:

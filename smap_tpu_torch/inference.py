@@ -9,6 +9,7 @@ on one device; the host only moves frames in and results out.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import glob
 import json
 import os
@@ -21,6 +22,8 @@ import torch
 from smap_tpu_torch.config import (FLIP_ORDER, PAF_FLIP_CHANNEL, ROOT_IDX,
                                    Config)
 from smap_tpu_torch.data.preprocess import prepare_images
+from smap_tpu_torch.models.layers import to_compute_dtype
+from smap_tpu_torch.models.quantize import fold_bn_state_dict
 from smap_tpu_torch.models.refinenet import RefineNet
 from smap_tpu_torch.models.smap import SMAP
 from smap_tpu_torch.ops.postprocess import (PoseResults, ScaleInfo,
@@ -44,19 +47,32 @@ class SMAPInference:
       refine_state_dict: optional RefineNet weights; enables the lift.
       do_flip: horizontal-flip test-time augmentation, as one 2B forward.
       device: where everything runs; ``"cuda"`` raises without a card.
+      quantized: ``"folded"`` serves with BatchNorm folded into the conv
+        weights, folded once here (``models.quantize.fold_bn_state_dict``)
+        unless ``cfg.model.quantized`` is already ``"folded"``, in which
+        case ``state_dict`` is taken as folded. The int8 modes of the JAX
+        package are not ported (``ModelConfig`` raises on them).
+      fuse_stem, fuse_bottleneck: on the folded model, run the stem and
+        the eligible bottlenecks as the fused kernels (``SMAP``).
     """
 
     def __init__(self, state_dict: Mapping[str, torch.Tensor],
                  cfg: Config = Config(),
                  refine_state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-                 do_flip: bool = False, device="cpu"):
+                 do_flip: bool = False, device="cpu", quantized=False,
+                 fuse_stem: bool = False, fuse_bottleneck: bool = False):
+        if quantized and not cfg.model.quantized:
+            state_dict = fold_bn_state_dict(state_dict)
+            cfg = dataclasses.replace(cfg, model=dataclasses.replace(
+                cfg.model, quantized=quantized))
         self.cfg = cfg
         self.device = get_device(device)
         self.do_flip = do_flip
-        self.model = SMAP(cfg.model)
+        self.model = SMAP(cfg.model, fuse_stem=fuse_stem,
+                          fuse_bottleneck=fuse_bottleneck)
         self.model.load_state_dict(state_dict, strict=True)
-        self.model.to(device=self.device, dtype=compute_dtype(
-            cfg.model.compute_dtype), memory_format=torch.channels_last)
+        to_compute_dtype(self.model, self.device,
+                         compute_dtype(cfg.model.compute_dtype))
         self.model.eval()
         self.refine_model = None
         if refine_state_dict is not None:
@@ -107,7 +123,7 @@ class SMAPInference:
         if isinstance(images, np.ndarray):
             images = torch.from_numpy(np.ascontiguousarray(images))
         if images.device != self.device:
-            if self.device.type == "cuda":
+            if self.device.type == "cuda" and images.device.type == "cpu":
                 images = images.pin_memory()
             images = images.to(self.device, non_blocking=True)
         return images, self.scale_info(scales)
@@ -194,11 +210,13 @@ def run_inference(image_dir: str, state_dict: Mapping[str, torch.Tensor],
                   cfg: Config = Config(),
                   refine_state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                   do_flip: bool = False, batch_size: int = 16,
-                  output_json: Optional[str] = None, device="cpu"
-                  ) -> Dict[str, Any]:
+                  output_json: Optional[str] = None, device="cpu",
+                  quantized=False, fuse_stem: bool = False,
+                  fuse_bottleneck: bool = False) -> Dict[str, Any]:
     """Inference over a directory of images (jpg / png / jpeg, recursive):
     letterbox on the host (OpenCV), run the pipeline, return (and
-    optionally write) the reference's result JSON."""
+    optionally write) the reference's result JSON. ``quantized``,
+    ``fuse_stem`` and ``fuse_bottleneck`` go to ``SMAPInference``."""
     import cv2
 
     from smap_tpu_torch.data.preprocess import letterbox_image
@@ -209,7 +227,9 @@ def run_inference(image_dir: str, state_dict: Mapping[str, torch.Tensor],
                                recursive=True))
     paths.sort()
     engine = SMAPInference(state_dict, cfg, refine_state_dict, do_flip,
-                           device=device)
+                           device=device, quantized=quantized,
+                           fuse_stem=fuse_stem,
+                           fuse_bottleneck=fuse_bottleneck)
     result: Dict[str, Any] = {"model_pattern": "MIX", "3d_pairs": []}
     chunks = collections.deque()
 

@@ -9,6 +9,9 @@ of ``convert_smap_state_dict`` / ``convert_refinenet_state_dict`` in
 * BatchNorm ``scale`` -> ``weight``; stats ``mean`` / ``var`` ->
   ``running_mean`` / ``running_var``, with ``num_batches_tracked`` 0;
 * Flax block names ``layerN_i`` -> torch Sequential keys ``layerN.i``.
+
+A BN-folded tree (``fold_bn_variables``' output: ``"params"`` only, every
+block ``{conv: {kernel, bias}}``) gives the folded model's state_dict.
 """
 
 from __future__ import annotations
@@ -48,7 +51,8 @@ def _zero_count() -> torch.Tensor:
 
 
 def smap_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """JAX SMAP variables -> the port's (and the reference's) state_dict."""
+    """JAX SMAP variables -> the port's (and the reference's) state_dict;
+    a BN-folded tree -> the state_dict of ``ModelConfig(quantized="folded")``."""
     out: Dict[str, torch.Tensor] = {}
     for path, arr in _flatten(variables["params"]):
         *scope, module, leaf = path
@@ -62,7 +66,7 @@ def smap_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 _tensor(arr))
         else:
             raise KeyError(f"unexpected param module in {path}")
-    for path, arr in _flatten(variables["batch_stats"]):
+    for path, arr in _flatten(variables.get("batch_stats", {})):
         *scope, module, leaf = path
         key = _key(tuple(scope) + (module,))
         out[f"{key}.running_{'mean' if leaf == 'mean' else 'var'}"] = (

@@ -3,60 +3,179 @@
 NCHW modules. Submodule names follow the reference state_dict layout
 (``conv`` / ``bn`` inside each conv block, ``conv_bn_relu1..3`` and
 ``downsample`` inside a bottleneck) so a reference checkpoint loads with
-``load_state_dict`` as it is.
+``load_state_dict`` as it is. A BN-folded model (``folded=True``,
+``models.quantize.fold_bn_state_dict``) has no ``bn`` submodules.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from smap_tpu_torch.ops.fused_block import fused_bottleneck
+
+# A bottleneck fuses only when its height is a multiple of this: the JAX
+# package's condition (its kernel's row band), kept so that the same blocks
+# take the kernel in both packages.
+FUSE_ROWS = 8
+
 
 class ConvBnRelu(nn.Module):
-    """Conv2d (with bias) + eval-mode BatchNorm (eps 1e-5) + optional ReLU.
+    """Conv2d (with bias) + eval-mode BatchNorm (eps 1e-5) + optional ReLU;
+    ``folded``: the conv alone, BatchNorm being folded into it.
 
     ``padding=None`` is SAME for odd kernels (``k // 2``)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
-                 stride: int = 1, padding=None, has_relu: bool = True):
+                 stride: int = 1, padding=None, has_relu: bool = True,
+                 folded: bool = False):
         super().__init__()
         if padding is None:
             padding = kernel_size // 2
         self.conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride=stride,
                               padding=padding, bias=True)
-        self.bn = nn.BatchNorm2d(out_ch, eps=1e-5, momentum=0.1)
+        self.bn = None if folded else nn.BatchNorm2d(out_ch, eps=1e-5,
+                                                     momentum=0.1)
         self.has_relu = has_relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.bn(self.conv(x))
+        # The bias is added to the conv's result rounded to its dtype, as
+        # the JAX package's Conv2D does (and PyTorch's cuDNN path does on
+        # the card; on the CPU a fused bias would round once, not twice).
+        c = self.conv
+        x = F.conv2d(x, c.weight, None, c.stride, c.padding).add_(
+            c.bias[:, None, None])
+        if self.bn is not None:
+            x = self.bn(x)
         return F.relu(x) if self.has_relu else x
 
 
-class Bottleneck(nn.Module):
-    """ResNet-50 bottleneck block (1x1 -> 3x3/stride -> 1x1, expansion 4)."""
+class PackedWeights:
+    """Weights repacked for a kernel, built once per weight state.
+
+    The owning module clears it on ``load_state_dict`` and on every move
+    or cast (``_apply``); the key (each source tensor's storage and
+    version counter) also catches an in-place update of a weight."""
+
+    def __init__(self, pack: Callable[..., Tuple[torch.Tensor, ...]]):
+        self._pack = pack
+        self.clear()
+
+    def clear(self) -> None:
+        self._key = None
+        self._value: Tuple[torch.Tensor, ...] = ()
+
+    def get(self, sources: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+        key = tuple((t.data_ptr(), t._version) for t in sources)
+        if key != self._key:
+            with torch.no_grad():
+                self._value = self._pack(*sources)
+            self._key = key
+        return self._value
+
+
+class PackedModule(nn.Module):
+    """A module with a :class:`PackedWeights` ``self._packed``, cleared
+    whenever its weights are loaded, moved or cast."""
+
+    _packed: PackedWeights
+
+    def _apply(self, fn, *args, **kwargs):
+        self._packed.clear()
+        return super()._apply(fn, *args, **kwargs)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        self._packed.clear()
+        super()._load_from_state_dict(*args, **kwargs)
+
+
+def _bias(b: torch.Tensor) -> torch.Tensor:
+    return b.detach().float().contiguous()
+
+
+def _matrix(w: torch.Tensor) -> torch.Tensor:
+    """A 1x1 conv's OIHW weight -> ``[in, out]`` bf16."""
+    return w.detach()[:, :, 0, 0].t().to(torch.bfloat16).contiguous()
+
+
+def _pack_bottleneck(w1, b1, w2, b2, w3, b3, wd=None, bd=None):
+    packed = (_matrix(w1), _bias(b1),
+              w2.detach().permute(2, 3, 1, 0).to(torch.bfloat16).contiguous(),
+              _bias(b2), _matrix(w3), _bias(b3))
+    if wd is not None:
+        packed += (_matrix(wd), _bias(bd))
+    return packed
+
+
+class Bottleneck(PackedModule):
+    """ResNet-50 bottleneck block (1x1 -> 3x3/stride -> 1x1, expansion 4).
+
+    ``fuse`` (with ``folded``): a stride-1 block with ``planes <= 64`` and a
+    height that is a multiple of ``FUSE_ROWS`` runs as one
+    :func:`~smap_tpu_torch.ops.fused_block.fused_bottleneck` call, in bf16
+    whatever the model's dtype (as the JAX package does), with the same
+    state_dict keys."""
 
     expansion = 4
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
-                 has_downsample: bool = False):
+                 has_downsample: bool = False, folded: bool = False,
+                 fuse: bool = False):
         super().__init__()
         out = planes * self.expansion
-        self.conv_bn_relu1 = ConvBnRelu(in_planes, planes, 1)
+        self.planes, self.stride = planes, stride
+        self.folded, self.fuse = folded, fuse
+        self.conv_bn_relu1 = ConvBnRelu(in_planes, planes, 1, folded=folded)
         self.conv_bn_relu2 = ConvBnRelu(planes, planes, 3, stride=stride,
-                                        padding=1)
-        self.conv_bn_relu3 = ConvBnRelu(planes, out, 1, has_relu=False)
+                                        padding=1, folded=folded)
+        self.conv_bn_relu3 = ConvBnRelu(planes, out, 1, has_relu=False,
+                                        folded=folded)
         self.downsample = (ConvBnRelu(in_planes, out, 1, stride=stride,
-                                      padding=0, has_relu=False)
+                                      padding=0, has_relu=False,
+                                      folded=folded)
                            if has_downsample else None)
+        self._packed = PackedWeights(_pack_bottleneck)
+
+    def _fuse_eligible(self, x: torch.Tensor) -> bool:
+        return (self.fuse and self.folded and self.stride == 1
+                and self.planes <= 64 and x.shape[2] % FUSE_ROWS == 0)
+
+    def _fused(self, x: torch.Tensor) -> torch.Tensor:
+        convs = [self.conv_bn_relu1, self.conv_bn_relu2, self.conv_bn_relu3]
+        if self.downsample is not None:
+            convs.append(self.downsample)
+        sources = [t for c in convs for t in (c.conv.weight, c.conv.bias)]
+        # NCHW in channels_last memory is NHWC: the permutes move no data.
+        y = fused_bottleneck(
+            x.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous(),
+            *self._packed.get(sources))
+        return y.permute(0, 3, 1, 2).to(x.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self._fuse_eligible(x):
+            return self._fused(x)
         out = self.conv_bn_relu3(self.conv_bn_relu2(self.conv_bn_relu1(x)))
         if self.downsample is not None:
             x = self.downsample(x)
         return F.relu(out + x)
+
+
+def to_compute_dtype(module: nn.Module, device: torch.device,
+                     dtype: torch.dtype) -> nn.Module:
+    """Move ``module`` to ``device`` in channels_last memory, with its
+    convolutions in ``dtype`` and every BatchNorm's parameters and
+    statistics in float32, as Flax keeps them: a bf16 forward then
+    normalises in float32 and rounds once, as the JAX package's does.
+    (The BatchNorm values are never cast: a round trip through bf16 would
+    keep its rounding.)"""
+    module.to(device=device, memory_format=torch.channels_last)
+    for m in module.modules():
+        if not isinstance(m, nn.BatchNorm2d) and not any(m.children()):
+            m.to(dtype)
+    return module
 
 
 def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:

@@ -18,7 +18,9 @@ from torch import nn
 
 from smap_tpu_torch.config import ModelConfig
 from smap_tpu_torch.models.layers import (Bottleneck, ConvBnRelu,
+                                          PackedModule, PackedWeights,
                                           max_pool_3x3_s2, resize_bilinear)
+from smap_tpu_torch.ops.fused_stem import fused_stem
 
 RESNET50_LAYERS = (3, 4, 6, 3)
 
@@ -26,21 +28,49 @@ Heads = Tuple[bool, bool, bool]
 ALL_HEADS: Tuple[Heads, ...] = ((True, True, True),) * 4
 
 
-class ResNetTop(nn.Module):
-    """Stem: 7x7/2 conv + BN + ReLU, then 3x3/2 max-pool."""
+def _pack_stem(kernel: torch.Tensor, bias: torch.Tensor):
+    return (kernel.detach().to(torch.bfloat16).contiguous(),
+            bias.detach().float().contiguous())
 
-    def __init__(self, width: int = 64):
+
+class ResNetTop(PackedModule):
+    """Stem: 7x7/2 conv + BN + ReLU, then 3x3/2 max-pool.
+
+    ``fuse`` (with ``folded``): at width 64, on an image whose height is a
+    multiple of 32 and width a multiple of 4 (the JAX package's condition),
+    the stem runs as one :func:`~smap_tpu_torch.ops.fused_stem.fused_stem`
+    call, in bf16 whatever the model's dtype, from the same
+    ``conv.conv.{weight,bias}``."""
+
+    def __init__(self, width: int = 64, folded: bool = False,
+                 fuse: bool = False):
         super().__init__()
-        self.conv = ConvBnRelu(3, width, 7, stride=2, padding=3)
+        self.width, self.folded, self.fuse = width, folded, fuse
+        self.conv = ConvBnRelu(3, width, 7, stride=2, padding=3,
+                               folded=folded)
+        self._packed = PackedWeights(_pack_stem)
+
+    def _fuse_eligible(self, x: torch.Tensor) -> bool:
+        return (self.fuse and self.folded and self.width == 64
+                and x.shape[2] % 32 == 0 and x.shape[3] % 4 == 0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self._fuse_eligible(x):
+            kernel, bias = self._packed.get([self.conv.conv.weight,
+                                             self.conv.conv.bias])
+            # NCHW in channels_last memory is NHWC: the permutes move no
+            # data.
+            y = fused_stem(x.permute(0, 2, 3, 1).to(torch.bfloat16)
+                           .contiguous(), kernel, bias)
+            return y.permute(0, 3, 1, 2).to(x.dtype)
         return max_pool_3x3_s2(self.conv(x))
 
 
 class DownsampleModule(nn.Module):
     """ResNet-50 trunk emitting 4 scales, coarsest first."""
 
-    def __init__(self, has_skip: bool = False, width: int = 64):
+    def __init__(self, has_skip: bool = False, width: int = 64,
+                 folded: bool = False, fuse: bool = False):
         super().__init__()
         self.has_skip = has_skip
         in_planes = width
@@ -51,7 +81,8 @@ class DownsampleModule(nn.Module):
             for bi in range(blocks):
                 s = stride if bi == 0 else 1
                 has_ds = bi == 0 and (s != 1 or in_planes != planes * 4)
-                layer.append(Bottleneck(in_planes, planes, s, has_ds))
+                layer.append(Bottleneck(in_planes, planes, s, has_ds,
+                                        folded, fuse))
                 in_planes = planes * 4
             setattr(self, f"layer{li + 1}", nn.Sequential(*layer))
 
@@ -76,26 +107,30 @@ class UpsampleUnit(nn.Module):
                  output_shape: Tuple[int, int], kpt_paf_channels: int,
                  depth_channels: int, chl_num: int = 256,
                  gen_skip: bool = False, gen_cross_conv: bool = False,
-                 cross_channels: int = 64):
+                 cross_channels: int = 64, folded: bool = False):
         super().__init__()
         self.ind = ind
         self.up_size = tuple(up_size)
         self.output_shape = tuple(output_shape)
-        self.u_skip = ConvBnRelu(in_planes, chl_num, 1, has_relu=False)
+
+        def block(cin, cout, k, has_relu=True):
+            return ConvBnRelu(cin, cout, k, has_relu=has_relu, folded=folded)
+
+        self.u_skip = block(in_planes, chl_num, 1, has_relu=False)
         if ind > 0:
-            self.up_conv = ConvBnRelu(chl_num, chl_num, 1, has_relu=False)
+            self.up_conv = block(chl_num, chl_num, 1, has_relu=False)
         for prefix, channels in (("res", kpt_paf_channels),
                                  ("res_d", depth_channels), ("res_rd", 1)):
-            setattr(self, f"{prefix}_conv1", ConvBnRelu(chl_num, chl_num, 1))
+            setattr(self, f"{prefix}_conv1", block(chl_num, chl_num, 1))
             setattr(self, f"{prefix}_conv2",
-                    ConvBnRelu(chl_num, channels, 3, has_relu=False))
+                    block(chl_num, channels, 3, has_relu=False))
         self.gen_skip = gen_skip
         if gen_skip:
-            self.skip1 = ConvBnRelu(in_planes, in_planes, 1)
-            self.skip2 = ConvBnRelu(chl_num, in_planes, 1)
+            self.skip1 = block(in_planes, in_planes, 1)
+            self.skip2 = block(chl_num, in_planes, 1)
         self.gen_cross_conv = ind == 3 and gen_cross_conv
         if self.gen_cross_conv:
-            self.cross_conv = ConvBnRelu(chl_num, cross_channels, 1)
+            self.cross_conv = block(chl_num, cross_channels, 1)
 
     def _head(self, prefix: str, out: torch.Tensor) -> torch.Tensor:
         h = getattr(self, f"{prefix}_conv1")(out)
@@ -125,7 +160,7 @@ class UpsampleModule(nn.Module):
     def __init__(self, output_shape: Tuple[int, int], kpt_paf_channels: int,
                  depth_channels: int, chl_num: int = 256,
                  gen_skip: bool = False, gen_cross_conv: bool = False,
-                 width: int = 64):
+                 width: int = 64, folded: bool = False):
         super().__init__()
         h, w = output_shape
         up_sizes = [(h // 8, w // 8), (h // 4, w // 4), (h // 2, w // 2),
@@ -134,7 +169,8 @@ class UpsampleModule(nn.Module):
         for i in range(4):
             setattr(self, f"up{i + 1}", UpsampleUnit(
                 i, in_planes[i], up_sizes[i], output_shape, kpt_paf_channels,
-                depth_channels, chl_num, gen_skip, gen_cross_conv, width))
+                depth_channels, chl_num, gen_skip, gen_cross_conv, width,
+                folded))
 
     def forward(self, x4, x3, x2, x1,
                 head_spec: Sequence[Heads] = ALL_HEADS):
@@ -158,12 +194,15 @@ class Stage(nn.Module):
     """Downsample + upsample hourglass."""
 
     def __init__(self, cfg: ModelConfig, has_skip: bool, gen_skip: bool,
-                 gen_cross_conv: bool):
+                 gen_cross_conv: bool, fuse_bottleneck: bool = False):
         super().__init__()
-        self.downsample = DownsampleModule(has_skip, cfg.trunk_width)
+        folded = cfg.quantized == "folded"
+        self.downsample = DownsampleModule(has_skip, cfg.trunk_width, folded,
+                                           fuse_bottleneck)
         self.upsample = UpsampleModule(
             cfg.output_shape, cfg.kpt_paf_channels, cfg.num_limbs,
-            cfg.upsample_channels, gen_skip, gen_cross_conv, cfg.trunk_width)
+            cfg.upsample_channels, gen_skip, gen_cross_conv, cfg.trunk_width,
+            folded)
 
     def forward(self, x, skip1, skip2, head_spec: Sequence[Heads] = ALL_HEADS):
         x4, x3, x2, x1 = self.downsample(x, skip1, skip2)
@@ -180,18 +219,28 @@ class SMAP(nn.Module):
     :meth:`forward` takes NHWC images and returns a dict of per-stage lists
     (coarse to fine) of NHWC float32 maps: ``heatmap_2d`` ``[B, H, W, 43]``,
     ``det_d`` ``[B, H, W, 14]``, ``root_d`` ``[B, H, W, 1]``. The network
-    computes in the dtype of its parameters.
+    computes in the dtype of its convolutions' parameters.
+
+    ``cfg.quantized == "folded"`` builds the BN-folded serving model
+    (``models.quantize.fold_bn_state_dict`` gives its weights). On it,
+    ``fuse_stem`` and ``fuse_bottleneck`` route the stem and the eligible
+    bottlenecks through the fused kernels; they are the counterparts of the
+    JAX package's ``SMAP_TPU_FUSE_STEM`` and ``SMAP_TPU_FUSE_BOTTLENECK``,
+    off by default as there, and change no state_dict key.
     """
 
-    def __init__(self, cfg: ModelConfig = ModelConfig()):
+    def __init__(self, cfg: ModelConfig = ModelConfig(),
+                 fuse_stem: bool = False, fuse_bottleneck: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.top = ResNetTop(cfg.trunk_width)
+        self.top = ResNetTop(cfg.trunk_width, cfg.quantized == "folded",
+                             fuse_stem)
         for i in range(cfg.stage_num):
             last = i == cfg.stage_num - 1
             setattr(self, f"stage{i}", Stage(cfg, has_skip=i > 0,
                                              gen_skip=not last,
-                                             gen_cross_conv=not last))
+                                             gen_cross_conv=not last,
+                                             fuse_bottleneck=fuse_bottleneck))
 
     def forward(self, imgs: torch.Tensor,
                 head_specs: Optional[Sequence[Sequence[Heads]]] = None

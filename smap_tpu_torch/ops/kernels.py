@@ -9,8 +9,8 @@ returns ``cudaGetLastError()``; the wrappers here raise if it is not 0.
 
 The wrappers take CUDA tensors only and raise on anything else: the plain
 PyTorch versions live beside their callers (``ops/paf.py``,
-``ops/association.py``), which choose by device. ``LAUNCHES`` counts the
-launches of each kernel.
+``ops/association.py``, ``ops/fused_stem.py``, ``ops/fused_block.py``),
+which choose by device. ``LAUNCHES`` counts the launches of each kernel.
 """
 
 from __future__ import annotations
@@ -29,18 +29,25 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("paf_score.cu", "associate_limb.cu")
+SOURCES = ("paf_score.cu", "associate_limb.cu", "fused_stem.cu",
+           "fused_bottleneck.cu")
 # -fmad=false: the PAF kernel must round each product and sum as the plain
 # version does (a contracted FMA moves sample points across .5 boundaries
 # and samples across the threshold). No fast math: sqrtf and / stay IEEE.
+# The stem kernel's multiply-adds are explicit __fmaf_rn calls, which the
+# flag leaves alone; the bottleneck kernel multiplies on the tensor cores.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-fmad=false")
+              "-O3", "-Xcompiler", "-fPIC", "-fmad=false")
 
 # Largest peak capacity the association kernel takes: one thread per dst
 # peak in a 128-thread block.
 MAX_ASSOC_PEAKS = 128
 
-LAUNCHES: Dict[str, int] = {"paf_score": 0, "associate_limb": 0}
+# The stem kernel's output channels (a compile-time constant of the kernel).
+STEM_COUT = 64
+
+LAUNCHES: Dict[str, int] = {"paf_score": 0, "associate_limb": 0,
+                            "fused_stem": 0, "fused_bottleneck": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -78,14 +85,37 @@ def build() -> Tuple[Path, str]:
         return out, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(tmp),
-           *(str(CSRC_DIR / s) for s in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    # One nvcc per source, all at once, then one link.
+    objs = [out.with_name(f"{out.stem}.{Path(s).stem}.{os.getpid()}.o")
+            for s in SOURCES]
+    cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-Xptxas", "-v", "-o", str(o),
+             str(CSRC_DIR / s)] for s, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    report = ""
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        text = proc.communicate()[0]
+        report += text
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{text}")
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        link = [_nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True,
+                              check=False)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(link)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
     os.replace(tmp, out)   # atomic: no process loads a half-written file
-    return out, proc.stdout + proc.stderr
+    return out, report
 
 
 def _load() -> ctypes.CDLL:
@@ -100,12 +130,17 @@ def _load() -> ctypes.CDLL:
             lib.paf_score_launch.restype = I
             lib.associate_limb_launch.argtypes = [P, P, P, I, I, P]
             lib.associate_limb_launch.restype = I
+            lib.fused_stem_launch.argtypes = [P, P, P, P, I, I, I, I, P]
+            lib.fused_stem_launch.restype = I
+            lib.fused_bottleneck_launch.argtypes = [P] * 10 + [I] * 6 + [P]
+            lib.fused_bottleneck_launch.restype = I
             _lib = lib
     return _lib
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype,
-           shape: Tuple[int, ...], device: torch.device) -> None:
+           shape: Tuple[int, ...], device: torch.device,
+           align: int = 1) -> None:
     if t.device != device or t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor on {device}, got "
                          f"{t.device}")
@@ -116,6 +151,8 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype,
                          f"{tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: expected a {align}-byte aligned tensor")
 
 
 def _raise_on(err: int, kernel: str) -> None:
@@ -187,3 +224,88 @@ def associate_limb(scores_all: torch.Tensor,
     _raise_on(err, "associate_limb_kernel")
     LAUNCHES["associate_limb"] += 1
     return assign
+
+
+def fused_stem(x: torch.Tensor, kernel: torch.Tensor,
+               bias: torch.Tensor) -> torch.Tensor:
+    """``fused_stem_kernel``: maxpool3x3/2(relu(conv7x7/2(x) + bias)).
+
+    x [B, H, W, Cin] bf16 NHWC (Cin 3 or 4); kernel [64, Cin, 7, 7] bf16;
+    bias [64] f32; all contiguous on one CUDA device. Returns
+    [B, Hp, Wp, 64] bf16 NHWC, Hp = ceil(ceil(H / 2) / 2).
+    """
+    if x.ndim != 4:
+        raise ValueError("x must be [B, H, W, Cin]")
+    B, H, W, cin = x.shape
+    if cin not in (3, 4):
+        raise ValueError(f"fused_stem_kernel takes Cin 3 or 4, got {cin}")
+    dev = x.device
+    _check(x, "x", torch.bfloat16, (B, H, W, cin), dev)
+    _check(kernel, "kernel", torch.bfloat16, (STEM_COUT, cin, 7, 7), dev)
+    _check(bias, "bias", torch.float32, (STEM_COUT,), dev)
+    lib = _load()
+    hp, wp = (H + 3) // 4, (W + 3) // 4
+    out = torch.empty((B, hp, wp, STEM_COUT), dtype=torch.bfloat16,
+                      device=dev)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = lib.fused_stem_launch(
+            x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            B, H, W, cin, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "fused_stem_kernel")
+    LAUNCHES["fused_stem"] += 1
+    return out
+
+
+def fused_bottleneck(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                     w2: torch.Tensor, b2: torch.Tensor, w3: torch.Tensor,
+                     b3: torch.Tensor, wd: Optional[torch.Tensor] = None,
+                     bd: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``fused_bottleneck_kernel``: one BN-folded stride-1 bottleneck.
+
+    x [B, H, W, Cin] bf16 NHWC; w1 [Cin, Cm], w2 [3, 3, Cm, Cm], w3
+    [Cm, Cout], wd [Cin, Cout] or None, bf16; biases f32; all contiguous on
+    one CUDA device; Cin, Cm, Cout multiples of 16. Returns
+    [B, H, W, Cout] bf16 NHWC.
+    """
+    if x.ndim != 4 or w1.ndim != 2 or w3.ndim != 2:
+        raise ValueError("x must be [B, H, W, Cin], w1 [Cin, Cm], "
+                         "w3 [Cm, Cout]")
+    B, H, W, cin = x.shape
+    cm, cout = w1.shape[1], w3.shape[1]
+    if cin % 16 or cm % 16 or cout % 16:
+        raise ValueError(f"fused_bottleneck_kernel takes channels in "
+                         f"multiples of 16, got {cin}, {cm}, {cout}")
+    if (wd is None) != (bd is None):
+        raise ValueError("wd and bd go together")
+    if wd is None and cin != cout:
+        raise ValueError("an identity residual needs Cin == Cout")
+    dev = x.device
+    # x is read 16 bytes at a time; the weights are wmma tiles, which
+    # need 32-byte aligned rows.
+    _check(x, "x", torch.bfloat16, (B, H, W, cin), dev, align=16)
+    _check(w1, "w1", torch.bfloat16, (cin, cm), dev, align=32)
+    _check(b1, "b1", torch.float32, (cm,), dev)
+    _check(w2, "w2", torch.bfloat16, (3, 3, cm, cm), dev, align=32)
+    _check(b2, "b2", torch.float32, (cm,), dev)
+    _check(w3, "w3", torch.bfloat16, (cm, cout), dev, align=32)
+    _check(b3, "b3", torch.float32, (cout,), dev)
+    if wd is not None:
+        _check(wd, "wd", torch.bfloat16, (cin, cout), dev, align=32)
+        _check(bd, "bd", torch.float32, (cout,), dev)
+    lib = _load()
+    out = torch.empty((B, H, W, cout), dtype=torch.bfloat16, device=dev)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = lib.fused_bottleneck_launch(
+            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
+            b2.data_ptr(), w3.data_ptr(), b3.data_ptr(),
+            None if wd is None else wd.data_ptr(),
+            None if bd is None else bd.data_ptr(), out.data_ptr(),
+            B, H, W, cin, cm, cout,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "fused_bottleneck_kernel")
+    LAUNCHES["fused_bottleneck"] += 1
+    return out

@@ -6,8 +6,9 @@ without a card raises: no path of the port falls back to the CPU.
 
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Dict, Union
+from typing import Dict, Iterator, Union
 
 import torch
 
@@ -16,11 +17,16 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 def get_device(device: Union[str, torch.device]) -> torch.device:
     """``torch.device`` for ``device``; raises if CUDA is asked for and
-    there is no card."""
+    there is no card. A CUDA device without an index gets the current one
+    (``"cuda"`` -> ``cuda:0``), so that it compares equal to the device of
+    the tensors placed on it."""
     dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {dev} requested but torch.cuda is not "
-                           f"available")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {dev} requested but torch.cuda is "
+                               f"not available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev
 
 
@@ -45,6 +51,21 @@ def set_tf32(enabled: bool) -> Dict[str, bool]:
     torch.backends.cuda.matmul.allow_tf32 = enabled
     return {"cudnn.allow_tf32": torch.backends.cudnn.allow_tf32,
             "cuda.matmul.allow_tf32": torch.backends.cuda.matmul.allow_tf32}
+
+
+@contextlib.contextmanager
+def no_tf32() -> Iterator[None]:
+    """TF32 off for cuDNN convolutions and CUDA matmuls inside the block,
+    restored after it: the plain versions of the kernels compute their
+    float32 sums in float32."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    set_tf32(False)
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,6 +1,7 @@
 """The port decodes the golden corpus (tests/golden/decode_corpus.json):
-the base scenes and the rung8, flip_tta and refine serving variants, at
-tests/test_golden.py's tolerances (rtol 1e-3, atol 2e-3, counts exact)."""
+the base scenes, the rung8, flip_tta and refine serving variants, and the
+BN-folded engine's decode (int8_folded_ref), at tests/test_golden.py's
+tolerances (rtol 1e-3, atol 2e-3, counts exact)."""
 
 import numpy as np
 import pytest
@@ -9,9 +10,10 @@ import torch
 torch.set_num_threads(1)
 
 PORT_VARIANTS = {"scenes", "rung8", "flip_tta", "refine"}
-# The quantized serving variants belong to models/quantize.py, which is
-# not ported yet.
-NOT_PORTED = {"int8_static", "int8_folded_ref"}
+# Decoded end to end by the engine (test_engine_decodes_folded_ref).
+ENGINE_VARIANTS = {"int8_folded_ref"}
+# int8 serving is not ported yet.
+NOT_PORTED = {"int8_static"}
 
 
 def test_renderer_copy_matches_tests_scenes():
@@ -55,7 +57,8 @@ def test_variant_set_is_exact(decoded):
     from smap_tpu_torch import golden
 
     assert set(decoded) == PORT_VARIANTS
-    assert set(golden.load_corpus()) == PORT_VARIANTS | NOT_PORTED
+    assert set(golden.load_corpus()) == (PORT_VARIANTS | ENGINE_VARIANTS
+                                         | NOT_PORTED)
 
 
 @pytest.mark.parametrize("variant", sorted(PORT_VARIANTS))
@@ -65,6 +68,42 @@ def test_decode_matches_golden_corpus(decoded, variant):
     want = golden.load_corpus()[variant]
     golden.compare(decoded[variant], want, label=variant)
     assert [r["count"] for r in decoded[variant]] == [1, 2, 3, 4, 3]
+
+
+def test_engine_decodes_folded_ref():
+    """int8_folded_ref: tests/make_golden.py's seeded full-width 3-stage
+    model (a Flax init at PRNGKey(0), float32, 64x96 in, max_peaks 31,
+    assoc_peaks 8) served with BatchNorm folded, one uint8 frame, through
+    the port's SMAPInference(quantized="folded") on the CPU."""
+    import jax
+    import jax.numpy as jnp
+
+    from smap_tpu.config import ModelConfig as JModelConfig
+    from smap_tpu.models.smap import SMAP as JSMAP
+
+    from smap_tpu_torch import golden
+    from smap_tpu_torch.config import Config, ModelConfig, PostProcessConfig
+    from smap_tpu_torch.inference import SMAPInference
+    from smap_tpu_torch.models.convert import smap_state_dict
+
+    input_shape, out = (64, 96), (16, 24)
+    model = dict(stage_num=3, output_shape=out, compute_dtype="float32")
+    variables = jax.jit(JSMAP(JModelConfig(**model)).init)(
+        jax.random.PRNGKey(0), jnp.zeros((1, *input_shape, 3), jnp.float32))
+    cfg = Config(model=ModelConfig(**model),
+                 post=PostProcessConfig(max_peaks=31, assoc_peaks=8),
+                 input_shape=input_shape, output_shape=out)
+    engine = SMAPInference(smap_state_dict(jax.tree.map(np.asarray,
+                                                        variables)),
+                           cfg, quantized="folded")
+    img = np.random.RandomState(5).randint(0, 256, (1, *input_shape, 3),
+                                           np.uint8)
+    scale = min(input_shape[1] / 640.0, input_shape[0] / 360.0)
+    scales = [{"scale": scale, "img_width": 640.0, "img_height": 360.0,
+               "f_x": 500.0, "f_y": 500.0, "cx": 320.0, "cy": 180.0}]
+    got = [golden._record(5, 0, engine.run_batch(img, scales))]
+    golden.compare(got, golden.load_corpus()["int8_folded_ref"],
+                   label="int8_folded_ref")
 
 
 def test_postprocess_single_is_the_batch_of_one():

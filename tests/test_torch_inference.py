@@ -173,3 +173,12 @@ def test_run_inference_over_a_directory(tmp_path):
         want = engine.results_to_pairs(
             engine.run_batch(img[None], [scale]), [pair["image_path"]])[0]
         assert pair == want
+
+
+def test_get_device_cpu_is_unchanged():
+    """Only an unindexed CUDA device gains an index (the current card);
+    the CPU device is returned as it is."""
+    from smap_tpu_torch.runtime import get_device
+
+    assert get_device("cpu") == torch.device("cpu")
+    assert get_device(torch.device("cpu")) == torch.device("cpu")

@@ -95,3 +95,185 @@ def test_kernels_reject_what_they_do_not_take(dev):
     with pytest.raises(ValueError):
         kernels.associate_limb(torch.zeros((1, 4, 4)),
                                torch.ones((1, 4), dtype=torch.bool))
+
+
+# Kernel C vs its plain version: the conv sums 147 exact products in
+# another order; a conv output near a bf16 rounding point can round the
+# other way, one bf16 ulp (tests/test_fused_stem.py's own bound).
+STEM_ATOL, STEM_RTOL = 2e-2, 1e-2
+# Kernel D vs its plain version: the sums run in another order, which can
+# flip the bf16 rounding of an intermediate y or z and so move an output
+# by up to two bf16 ulps.
+BLOCK_ATOL, BLOCK_RTOL = 1e-2, 1.6e-2
+
+
+def _stem_inputs(gen, B, H, W, cin, bias_value=None):
+    x = torch.randn((B, H, W, cin), generator=gen).to(torch.bfloat16)
+    k = (torch.randn((64, cin, 7, 7), generator=gen)
+         * (2.0 / (49 * cin)) ** 0.5).to(torch.bfloat16)
+    b = (torch.randn((64,), generator=gen) * 0.1 if bias_value is None
+         else torch.full((64,), bias_value))
+    return x, k, b.float()
+
+
+@pytest.mark.parametrize("B,H,W,cin", [(2, 64, 96, 3), (1, 32, 48, 3),
+                                       (2, 64, 64, 4), (1, 128, 96, 3),
+                                       (3, 30, 50, 3), (1, 5, 7, 3)])
+def test_fused_stem_kernel_matches_plain(dev, B, H, W, cin):
+    from smap_tpu_torch.ops import kernels
+    from smap_tpu_torch.ops.fused_stem import fused_stem
+
+    gen = torch.Generator().manual_seed(H * W + cin)
+    x, k, b = (t.to(dev) for t in _stem_inputs(gen, B, H, W, cin))
+    kernels.reset_launch_counts()
+    got = fused_stem(x, k, b)
+    assert kernels.LAUNCHES["fused_stem"] == 1
+    want = fused_stem(x, k, b, plain=True)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (B, (H + 3) // 4, (W + 3) // 4, 64)
+    torch.testing.assert_close(got.float(), want.float(), atol=STEM_ATOL,
+                               rtol=STEM_RTOL)
+
+
+def test_fused_stem_kernel_negative_bias_pools_to_zero(dev):
+    """Every conv output relus to 0: the pool padding must not win."""
+    from smap_tpu_torch.ops.fused_stem import fused_stem
+
+    gen = torch.Generator().manual_seed(1)
+    x, k, b = (t.to(dev) for t in _stem_inputs(gen, 2, 32, 48, 3, -10.0))
+    got = fused_stem(x, k, b)
+    want = fused_stem(x, k, b, plain=True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert float(got.float().abs().max()) == 0.0
+
+
+def _block_inputs(gen, B, H, W, cin, cm, cout, proj):
+    def w(*shape, fan_in):
+        return (torch.randn(shape, generator=gen)
+                * (2.0 / fan_in) ** 0.5).to(torch.bfloat16)
+
+    def bias(n):
+        return torch.randn((n,), generator=gen) * 0.1
+
+    x = torch.randn((B, H, W, cin), generator=gen).to(torch.bfloat16)
+    args = [x, w(cin, cm, fan_in=cin), bias(cm),
+            w(3, 3, cm, cm, fan_in=9 * cm), bias(cm),
+            w(cm, cout, fan_in=cm), bias(cout)]
+    if proj:
+        args += [w(cin, cout, fan_in=cin), bias(cout)]
+    return args
+
+
+@pytest.mark.parametrize("B,H,W,cin,cm,cout,proj", [
+    (2, 16, 24, 32, 16, 32, False),       # identity, two row tiles
+    (2, 16, 24, 32, 16, 32, True),
+    (1, 32, 13, 16, 16, 16, False),       # ragged width
+    (2, 24, 24, 32, 16, 48, True),        # Cout != Cin, projection
+    (1, 20, 40, 64, 64, 256, True),       # H not a multiple of the tile
+    (2, 128, 208, 64, 64, 256, True),     # layer1_0 at the serving shape
+    (2, 128, 208, 256, 64, 256, False),   # layer1_1 / layer1_2
+])
+def test_fused_bottleneck_kernel_matches_plain(dev, B, H, W, cin, cm, cout,
+                                               proj):
+    from smap_tpu_torch.ops import kernels
+    from smap_tpu_torch.ops.fused_block import fused_bottleneck
+
+    gen = torch.Generator().manual_seed(H * W + cin + proj)
+    args = [t.to(dev) for t in _block_inputs(gen, B, H, W, cin, cm, cout,
+                                             proj)]
+    kernels.reset_launch_counts()
+    got = fused_bottleneck(*args)
+    assert kernels.LAUNCHES["fused_bottleneck"] == 1
+    want = fused_bottleneck(*args, plain=True)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (B, H, W, cout)
+    torch.testing.assert_close(got.float(), want.float(), atol=BLOCK_ATOL,
+                               rtol=BLOCK_RTOL)
+
+
+def test_fused_kernels_reject_what_they_do_not_take(dev):
+    from smap_tpu_torch.ops import kernels
+
+    gen = torch.Generator().manual_seed(0)
+    x, k, b = (t.to(dev) for t in _stem_inputs(gen, 1, 32, 48, 3))
+    with pytest.raises(ValueError):        # not contiguous NHWC
+        kernels.fused_stem(x.permute(0, 2, 1, 3), k, b)
+    with pytest.raises(ValueError):        # f32 image
+        kernels.fused_stem(x.float(), k, b)
+    args = [t.to(dev) for t in _block_inputs(gen, 1, 8, 16, 32, 16, 32,
+                                             False)]
+    with pytest.raises(ValueError):        # channels not multiples of 16
+        kernels.fused_bottleneck(args[0][..., :24].contiguous(), *args[1:])
+    with pytest.raises(ValueError):        # bf16 bias
+        kernels.fused_bottleneck(*args[:2], args[2].bfloat16(), *args[3:])
+
+
+def test_engine_serves_frames_already_on_the_card(dev):
+    """device="cuda" (no index) with a uint8 frame tensor on the card: the
+    engine takes it as it is (no pinning of a CUDA tensor)."""
+    from smap_tpu_torch.config import Config, ModelConfig, PostProcessConfig
+    from smap_tpu_torch.inference import SMAPInference
+    from smap_tpu_torch.models.smap import init_smap
+
+    mcfg = ModelConfig(stage_num=1, trunk_width=8, upsample_channels=16,
+                       output_shape=(16, 24))
+    cfg = Config(model=mcfg, post=PostProcessConfig(max_peaks=31,
+                                                    assoc_peaks=8),
+                 input_shape=(64, 96), output_shape=(16, 24))
+    engine = SMAPInference(init_smap(mcfg).state_dict(), cfg, device="cuda")
+    assert engine.device == torch.device("cuda", torch.cuda.current_device())
+    frames = torch.randint(0, 256, (2, 64, 96, 3), dtype=torch.uint8,
+                           device="cuda")
+    scales = [{"scale": 0.05, "img_width": 1920.0, "img_height": 1080.0,
+               "f_x": 1500.0, "f_y": 1500.0, "cx": 960.0, "cy": 540.0}] * 2
+    res = engine.run_batch(frames, scales)
+    torch.cuda.synchronize()
+    assert tuple(res.count.shape) == (2,)
+
+
+def test_folded_engine_runs_both_fused_kernels(dev):
+    """SMAPInference(quantized="folded") with both fused paths on the card
+    (one stage, full width, 64x96): 1 stem and 3 bottleneck launches per
+    forward, and maps as close to a float32 forward as the unfolded bf16
+    engine's, within 2x + 1e-4."""
+    import dataclasses
+
+    from smap_tpu_torch.config import Config, ModelConfig, PostProcessConfig
+    from smap_tpu_torch.inference import SMAPInference
+    from smap_tpu_torch.models.smap import init_smap
+    from smap_tpu_torch.ops import kernels
+    from smap_tpu_torch.runtime import no_tf32
+
+    mcfg = ModelConfig(stage_num=1, output_shape=(16, 24))
+    cfg = Config(model=mcfg, post=PostProcessConfig(max_peaks=31,
+                                                    assoc_peaks=8),
+                 input_shape=(64, 96), output_shape=(16, 24))
+    sd = init_smap(mcfg, seed=3).state_dict()
+    gen = torch.Generator().manual_seed(4)
+    for key, v in sd.items():    # non-identity BatchNorm: the fold matters
+        if key.endswith(("bn.bias", "bn.running_mean", "conv.bias")):
+            sd[key] = torch.randn(v.shape, generator=gen) * 0.1
+        elif key.endswith(("bn.weight", "bn.running_var")):
+            sd[key] = torch.rand(v.shape, generator=gen) + 0.5
+    f32 = dataclasses.replace(cfg, model=dataclasses.replace(
+        mcfg, compute_dtype="float32"))
+    frames = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 256, (2, 64, 96, 3), np.uint8)).to(dev)
+    fused = SMAPInference(sd, cfg, device=dev, quantized="folded",
+                          fuse_stem=True, fuse_bottleneck=True)
+    with no_tf32():
+        truth = SMAPInference(sd, f32, device=dev).forward(frames)
+    base = SMAPInference(sd, cfg, device=dev).forward(frames)
+    kernels.reset_launch_counts()
+    got = fused.forward(frames)
+    torch.cuda.synchronize()
+    assert (kernels.LAUNCHES["fused_stem"],
+            kernels.LAUNCHES["fused_bottleneck"]) == (1, 3)
+
+    def rel(a, b):
+        return float((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt())
+
+    for g, b, t in zip(got, base, truth):
+        assert bool(torch.isfinite(g).all())
+        assert rel(g, t) <= 2.0 * rel(b, t) + 1e-4

@@ -43,7 +43,7 @@ def test_paf_scores_plain_matches_jax_gather(seed, max_peaks):
     kernels.reset_launch_counts()
     got = paf_scores(torch.from_numpy(pafs)[None], jax_peaks_to_torch(jpeaks),
                      torch.from_numpy(pairs))
-    assert kernels.LAUNCHES == {"paf_score": 0, "associate_limb": 0}, (
+    assert set(kernels.LAUNCHES.values()) == {0}, (
         "a CPU tensor must take the plain version")
     assert got.shape == (1, 14, max_peaks, max_peaks)
     default = np.float32(0.1 + 1e-6)

@@ -97,3 +97,80 @@ def jax_peaks_to_torch(peaks):
                  score=torch.from_numpy(np.array(peaks.score))[None],
                  count=torch.from_numpy(
                      np.array(peaks.count, np.int32))[None])
+
+
+# The folded serving tests' model: JAX's tests/test_fused_block.py
+# _tiny_model_and_vars (one stage at full width, 64x96 in), bf16.
+FUSED_MODEL = dict(stage_num=1, output_shape=(16, 24),
+                   compute_dtype="bfloat16")
+
+
+@functools.lru_cache(maxsize=None)
+def jax_fused_smap():
+    """(JAX SMAP module, numpy variables, image [2, 64, 96, 3]) for
+    FUSED_MODEL, unfolded."""
+    import jax.numpy as jnp
+
+    from smap_tpu.config import ModelConfig
+    from smap_tpu.models.smap import SMAP
+
+    model = SMAP(ModelConfig(**FUSED_MODEL))
+    variables = random_variables(
+        model, jnp.zeros((1, *INPUT_HW, 3), jnp.float32), seed=2)
+    img = np.random.RandomState(3).randn(2, *INPUT_HW, 3).astype(np.float32)
+    return model, variables, img
+
+
+def rel_err(a, b):
+    """RMS of a - b over the RMS of b."""
+    a, b = np.asarray(a, np.float32), np.asarray(b, np.float32)
+    return float(np.sqrt(np.mean((a - b) ** 2))
+                 / (np.sqrt(np.mean(b ** 2)) + 1e-9))
+
+
+def folded_fused_errors(monkeypatch, fuse_stem, fuse_bottleneck):
+    """Distances to the float32 unfolded truth of FUSED_MODEL's infer maps:
+    JAX's bf16 unfolded graph (the noise floor), JAX's folded bf16 graph
+    and the port's, each with the given fused paths on. Returns
+    {map: (noise, jax_err, port_err)}."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    import smap_tpu.models.layers as jlayers
+    import smap_tpu.models.smap as jsmap
+    from smap_tpu.models.quantize import fold_bn_variables
+    from smap_tpu.models.smap import SMAP as JSMAP
+
+    from smap_tpu_torch.config import ModelConfig
+    from smap_tpu_torch.models.convert import smap_state_dict
+    from smap_tpu_torch.models.layers import to_compute_dtype
+    from smap_tpu_torch.models.smap import SMAP
+
+    jmodel, variables, img = jax_fused_smap()
+    cfg = jmodel.cfg
+
+    def infer(c, v):
+        m = JSMAP(c)
+        return jax.jit(lambda v, x: m.apply(v, x, method=JSMAP.infer))(
+            v, jnp.asarray(img))
+
+    truth = infer(dataclasses.replace(cfg, compute_dtype="float32"),
+                  variables)
+    base = infer(cfg, variables)
+    folded = jax.tree.map(np.asarray, jax.jit(fold_bn_variables)(variables))
+    monkeypatch.setattr(jsmap, "FUSE_STEM", fuse_stem)
+    monkeypatch.setattr(jlayers, "FUSE_BOTTLENECK", fuse_bottleneck)
+    jax_fused = infer(dataclasses.replace(cfg, quantized="folded"), folded)
+
+    port = SMAP(ModelConfig(**FUSED_MODEL, quantized="folded"),
+                fuse_stem=fuse_stem, fuse_bottleneck=fuse_bottleneck).eval()
+    port.load_state_dict(smap_state_dict(folded), strict=True)
+    to_compute_dtype(port, torch.device("cpu"), torch.bfloat16)
+    with torch.no_grad():
+        port_fused = port.infer(torch.from_numpy(img))
+    return {name: (rel_err(b, t), rel_err(j, t), rel_err(p.numpy(), t))
+            for name, t, b, j, p in zip(("2d", "3d", "rd"), truth, base,
+                                        jax_fused, port_fused)}
