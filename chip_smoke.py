@@ -21,8 +21,11 @@ exits non-zero with no result line):
    plain versions on the card in bf16, at the serving shapes (the stem on
    [16, 512, 832, 3], the bottleneck on [16, 128, 208] with 64 -> 64 -> 256
    plus projection and 256 -> 64 -> 256 identity), on a stem whose outputs
-   all pool to 0, and on ragged bottleneck shapes; max abs error, share of
-   bit-equal outputs, times of both.
+   all pool to 0, and on ragged bottleneck shapes (W 13 and 100, H 8,
+   batch 1, a tile count that is not a multiple of the SM count); max abs
+   error, share of bit-equal outputs, times of both, and each kernel in
+   turns with the cuDNN bf16 chain the folded-unfused engine runs for the
+   same function (``library_ms``).
 6. folded serving: ``SMAPInference(quantized="folded", fuse_stem=True,
    fuse_bottleneck=True)`` at full width on the frames of phase 4, with
    seeded BatchNorm statistics: 1 stem and 9 bottleneck launches per
@@ -31,10 +34,13 @@ exits non-zero with no result line):
    within 2x the unfolded bf16 engine's + 1e-4; one batch decoded end to
    end.
 
-The last lines are the kernels' JSON summary, the card's name and power
-limit (nvidia-smi), and ``{"ok": true, "device": {...}}``. Without a CUDA
-device, or without the ``smap_tpu_torch`` package beside this file, it
-exits non-zero and prints no result.
+The last lines are the kernels' JSON summary (per kernel: times, launches
+in the main path and per forward or batch, the least time the card could
+take at its published peaks, ``bound_ms``, with what bounds it and the share
+of it reached), the card's name and power limit (nvidia-smi), and
+``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
+``smap_tpu_torch`` package beside this file, it exits non-zero and prints
+no result.
 """
 
 from __future__ import annotations
@@ -71,6 +77,12 @@ BLOCK_ATOL, BLOCK_RTOL = 1e-2, 1.6e-2
 BATCH = 16
 TIMED_BATCHES = 5
 STREAM_BATCHES = 4
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet, dense): the
+# bounds are the larger of the bytes over the memory rate and the
+# operations over the peak rate of their type.
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 
 
 def log(msg: str) -> None:
@@ -99,6 +111,28 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def in_turns(fns, iters: int):
+    """Mean device ms of each of ``fns`` (name -> callable), timed in turns
+    A B .. B A on the same card."""
+    names = list(fns)
+    got = {name: [] for name in names}
+    for name in names + names[::-1]:
+        got[name].append(cuda_ms(fns[name], iters))
+    return {name: float(np.mean(v)) for name, v in got.items()}
+
+
+def bound(ms: float, nbytes: float, ops: float, peak: float) -> dict:
+    """The roofline keys of a summary row for a kernel that took ``ms``:
+    ``nbytes`` moved (each input read once, each output written once) and
+    ``ops`` operations on a unit of rate ``peak``."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    memory = t_bytes >= t_ops
+    b = max(t_bytes, t_ops)
+    return dict(bound_ms=b, bound_by="bytes" if memory else "operations",
+                bound_kind="memory" if memory else "compute", share=b / ms)
 
 
 def random_peaks(gen: torch.Generator, B: int, J: int, K: int, h: int,
@@ -169,7 +203,7 @@ def phase_kernels(dev, card: str):
 
     # Kernel A at the serving shapes, random maps and peak tables.
     pafs = (torch.rand((BATCH, 2 * L, H, W), generator=gen) * 2 - 1).to(dev)
-    times_a = {}
+    times_a, bounds_a = {}, {}
     for K in (40, 127):
         peaks = random_peaks(gen, BATCH, J, K, H, W, dev)
         tk = paf_scores(pafs, peaks, limb_pairs)
@@ -181,6 +215,15 @@ def phase_kernels(dev, card: str):
         plain_ms = cuda_ms(lambda: paf_scores(pafs, peaks, limb_pairs,
                                               plain=True), 5)
         times_a[K] = (ms, plain_ms)
+        # What this run's peaks need: 25 samples of 2 floats per scored
+        # pair (at most the whole maps), the peak tables and the output.
+        cnt = peaks.count.long()
+        pairs = float((cnt[:, limb_pairs[:, 0].long()]
+                       * cnt[:, limb_pairs[:, 1].long()]).sum())
+        nbytes = (min(pairs * 25 * 2 * 4, pafs.numel() * 4)
+                  + peaks.xy.numel() * 4 + cnt.numel() * 4
+                  + BATCH * L * K * K * 4)
+        bounds_a[K] = bound(ms, nbytes, pairs * 25 * 8, F32_FLOPS)
         log(f"kernels: paf_score B={BATCH} K={K} L={L} {H}x{W}: "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, max abs err "
             f"{err_a:.3g} [{card}]")
@@ -189,7 +232,8 @@ def phase_kernels(dev, card: str):
         source="smap_tpu_torch/csrc/paf_score.cu",
         replaces="smap_tpu/ops/pallas_kernels.py:62",
         max_abs_err=err_a, ms=times_a[40][0], plain_ms=times_a[40][1],
-        ms_k127=times_a[127][0], plain_ms_k127=times_a[127][1])
+        **bounds_a[40], library_ms=None, ms_k127=times_a[127][0],
+        plain_ms_k127=times_a[127][1])
 
     # Kernel B: random tables with ties, -inf rows and all -inf tables.
     times_b = {}
@@ -211,7 +255,11 @@ def phase_kernels(dev, card: str):
                                  f"differ from the plain greedy")
         ms = cuda_ms(lambda: associate_limb(scores, valid), 50)
         plain_ms = cuda_ms(lambda: associate_limb_plain(scores, valid), 3)
-        times_b[K] = (ms, plain_ms)
+        # One table in and the assignment out per image; the greedy takes
+        # at most K steps of an argmax over the K x K table.
+        times_b[K] = (ms, plain_ms, bound(
+            ms, BATCH * K * K * 4 + BATCH * K + BATCH * K * 4,
+            BATCH * K ** 3, F32_FLOPS))
         log(f"kernels: associate_limb B={BATCH} K={K}: equal; {ms:.4f} ms, "
             f"plain {plain_ms:.4f} ms [{card}]")
     rows["associate_limb"] = dict(
@@ -219,7 +267,8 @@ def phase_kernels(dev, card: str):
         source="smap_tpu_torch/csrc/associate_limb.cu",
         replaces="smap_tpu/ops/pallas_kernels.py:208",
         max_abs_err=0.0, ms=times_b[40][0], plain_ms=times_b[40][1],
-        ms_k127=times_b[127][0], plain_ms_k127=times_b[127][1])
+        **times_b[40][2], library_ms=None, ms_k127=times_b[127][0],
+        plain_ms_k127=times_b[127][1])
     kernels.reset_launch_counts()
     return rows
 
@@ -411,27 +460,101 @@ def block_inputs(gen, B, H, W, cin, cm, cout, proj, dev):
     return args
 
 
+def cudnn_bottleneck(args, dev):
+    """The folded-unfused engine's chain for one bottleneck (cuDNN bf16
+    convs in channels_last, bias adds, ReLUs, residual add: ``Bottleneck``
+    with ``fuse=False``) on the weights of ``block_inputs``; returns a
+    callable on the same x."""
+    from smap_tpu_torch.models.layers import Bottleneck, to_compute_dtype
+
+    x, w1, b1, w2, b2, w3, b3, *proj = args
+
+    def oihw(w):                       # [in, out] -> [out, in, 1, 1]
+        return w.t()[:, :, None, None]
+
+    block = Bottleneck(w1.shape[0], w1.shape[1], 1, bool(proj), folded=True)
+    convs = [(block.conv_bn_relu1, oihw(w1), b1),
+             (block.conv_bn_relu2, w2.permute(3, 2, 0, 1), b2),
+             (block.conv_bn_relu3, oihw(w3), b3)]
+    if proj:
+        convs.append((block.downsample, oihw(proj[0]), proj[1]))
+    with torch.no_grad():
+        for c, w, b in convs:
+            c.conv.weight.copy_(w.float())
+            c.conv.bias.copy_(b)
+    to_compute_dtype(block, dev, torch.bfloat16).eval()
+    xc = x.permute(0, 3, 1, 2)         # NHWC memory: channels_last NCHW
+
+    def run():
+        with torch.no_grad():
+            return block(xc)
+    return run
+
+
+def cudnn_stem(x, k, b, dev):
+    """The folded-unfused engine's stem (cuDNN bf16 conv in channels_last,
+    bias add, ReLU, ``max_pool_3x3_s2``: ``ResNetTop`` with ``fuse=False``)
+    on the same weights; returns a callable on the same x."""
+    from smap_tpu_torch.models.layers import to_compute_dtype
+    from smap_tpu_torch.models.smap import ResNetTop
+
+    top = ResNetTop(64, folded=True)
+    with torch.no_grad():
+        top.conv.conv.weight.copy_(k.float())
+        top.conv.conv.bias.copy_(b)
+    to_compute_dtype(top, dev, torch.bfloat16).eval()
+    xc = x.permute(0, 3, 1, 2)
+
+    def run():
+        with torch.no_grad():
+            return top(xc)
+    return run
+
+
+def block_work(args):
+    """(bytes, bf16 FLOPs) of one bottleneck call: x and the weights in,
+    out out; the three (four) products."""
+    x, w1, _, w2, _, w3, _, *proj = args
+    B, H, W, cin = x.shape
+    cm, cout = w1.shape[1], w3.shape[1]
+    wbytes = sum(t.numel() * t.element_size() for t in args[1:])
+    macs = cin * cm + 9 * cm * cm + cm * cout + (cin * cout if proj else 0)
+    return B * H * W * (cin + cout) * 2 + wbytes, 2.0 * B * H * W * macs
+
+
 def phase_fused_kernels(dev, card: str):
-    """Kernels C and D against their plain versions; returns the summary
-    rows (without launches)."""
+    """Kernels C and D against their plain versions, and in turns with the
+    cuDNN bf16 chains; returns the summary rows (without launches)."""
     from smap_tpu_torch.ops import kernels
-    from smap_tpu_torch.ops.fused_block import fused_bottleneck
-    from smap_tpu_torch.ops.fused_stem import fused_stem
+    from smap_tpu_torch.ops.fused_block import (fused_bottleneck,
+                                                pack_bottleneck_for_kernel)
+    from smap_tpu_torch.ops.fused_stem import fused_stem, pack_stem_for_kernel
 
     gen = torch.Generator().manual_seed(1)
     rows = {}
 
-    # Kernel C at the serving shape, then a stem whose outputs all relu
-    # to 0 (the pool's padding must not win) at two sizes.
-    x, k, b = stem_inputs(gen, BATCH, 512, 832, dev)
-    err, equal = check_close(fused_stem(x, k, b),
-                             fused_stem(x, k, b, plain=True), STEM_ATOL,
-                             STEM_RTOL, "fused_stem serving shape")
-    ms = cuda_ms(lambda: fused_stem(x, k, b), 20)
+    # Kernel C at the serving shape and at (2, 30, 50), then a stem whose
+    # outputs all relu to 0 (the pool's padding must not win) at both.
+    errs = []
+    for B, H, W in ((2, 30, 50), (BATCH, 512, 832)):
+        x, k, b = stem_inputs(gen, B, H, W, dev)
+        err, equal = check_close(fused_stem(x, k, b),
+                                 fused_stem(x, k, b, plain=True), STEM_ATOL,
+                                 STEM_RTOL, f"fused_stem [{B}, {H}, {W}]")
+        errs.append(err)
+    packed = pack_stem_for_kernel(k)
+    t = in_turns({"ms": lambda: fused_stem(x, k, b, packed=packed),
+                  "library_ms": cudnn_stem(x, k, b, dev)}, 20)
     plain_ms = cuda_ms(lambda: fused_stem(x, k, b, plain=True), 5)
+    Hc, Wc = (512 + 1) // 2, (832 + 1) // 2
+    nbytes = x.numel() * 2 + k.numel() * 2 + 64 * 4 + BATCH * 128 * 208 * 128
+    c_bound = bound(t["ms"], nbytes, 2.0 * BATCH * Hc * Wc * 64 * 147,
+                    BF16_FLOPS)
     log(f"kernels: fused_stem [{BATCH}, 512, 832, 3] -> 64: max abs err "
-        f"{err:.3g}, {equal:.4f} bit-equal; {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms [{card}]")
+        f"{err:.3g}, {equal:.4f} bit-equal; {t['ms']:.4f} ms, cuDNN chain "
+        f"{t['library_ms']:.4f} ms (in turns), plain {plain_ms:.4f} ms; "
+        f"bound {c_bound['bound_ms']:.4f} ms ({c_bound['bound_kind']}), "
+        f"share {c_bound['share']:.3f} [{card}]")
     for B, H, W in ((BATCH, 512, 832), (2, 30, 50)):
         xn, kn, bn = stem_inputs(gen, B, H, W, dev, bias_value=-10.0)
         got = fused_stem(xn, kn, bn)
@@ -444,12 +567,13 @@ def phase_fused_kernels(dev, card: str):
     rows["fused_stem"] = dict(
         name="fused_stem_kernel", route="cuda",
         source="smap_tpu_torch/csrc/fused_stem.cu",
-        replaces="smap_tpu/ops/fused_stem.py:216", max_abs_err=err, ms=ms,
-        plain_ms=plain_ms, bit_equal=equal)
-    del x, k, b
+        replaces="smap_tpu/ops/fused_stem.py:216", max_abs_err=max(errs),
+        ms=t["ms"], plain_ms=plain_ms, **c_bound,
+        library_ms=t["library_ms"], bit_equal=equal)
+    del x, k, b, xn, kn, bn, got
 
     # Kernel D: the serving shapes (timed), then ragged ones.
-    errs, times, equals = [], {}, {}
+    errs, d = [], {}
     for label, shape, timed in (
             ("layer1_1 256->64->256 identity", (BATCH, 128, 208, 256, 64,
                                                 256, False), True),
@@ -457,7 +581,12 @@ def phase_fused_kernels(dev, card: str):
                                                  256, True), True),
             ("ragged W=13, H=20", (2, 20, 13, 64, 64, 256, True), False),
             ("H=36 (4 past a tile), W=100", (3, 36, 100, 256, 64, 256,
-                                             False), False)):
+                                             False), False),
+            ("H=8 (one tile row), W=100, batch 1", (1, 8, 100, 256, 64, 256,
+                                                    False), False),
+            ("280 tiles (not a multiple of 132)", (5, 64, 100, 256, 64, 256,
+                                                   False), False),
+            ("batch 1 projection", (1, 128, 208, 64, 64, 256, True), False)):
         args = block_inputs(gen, *shape, dev)
         err, equal = check_close(fused_bottleneck(*args),
                                  fused_bottleneck(*args, plain=True),
@@ -467,18 +596,28 @@ def phase_fused_kernels(dev, card: str):
         msg = (f"kernels: fused_bottleneck {label} {list(shape[:3])}: max "
                f"abs err {err:.3g}, {equal:.4f} bit-equal")
         if timed:
-            ms = cuda_ms(lambda: fused_bottleneck(*args), 20)
-            plain_ms = cuda_ms(lambda: fused_bottleneck(*args, plain=True), 5)
-            times[shape[6]], equals[shape[6]] = (ms, plain_ms), equal
-            msg += f"; {ms:.4f} ms, plain {plain_ms:.4f} ms [{card}]"
+            packed = pack_bottleneck_for_kernel(*args[1:])
+            t = in_turns({"ms": lambda: fused_bottleneck(*args,
+                                                         packed=packed),
+                          "library_ms": cudnn_bottleneck(args, dev)}, 20)
+            t["plain_ms"] = cuda_ms(lambda: fused_bottleneck(*args,
+                                                             plain=True), 5)
+            nbytes, flops = block_work(args)
+            t.update(bound(t["ms"], nbytes, flops, BF16_FLOPS),
+                     bit_equal=equal)
+            d[shape[6]] = t
+            msg += (f"; {t['ms']:.4f} ms, cuDNN chain {t['library_ms']:.4f} "
+                    f"ms (in turns), plain {t['plain_ms']:.4f} ms; bound "
+                    f"{t['bound_ms']:.4f} ms ({t['bound_kind']}), share "
+                    f"{t['share']:.3f} [{card}]")
         log(msg)
+        del args
     rows["fused_bottleneck"] = dict(
         name="fused_bottleneck_kernel", route="cuda",
         source="smap_tpu_torch/csrc/fused_bottleneck.cu",
         replaces="smap_tpu/ops/fused_block.py:117", max_abs_err=max(errs),
-        ms=times[False][0], plain_ms=times[False][1],
-        ms_proj=times[True][0], plain_ms_proj=times[True][1],
-        bit_equal=equals[False])
+        **d[False], **{f"{k}_proj": v for k, v in d[True].items()
+                       if k not in ("bound_by", "bound_kind")})
     kernels.reset_launch_counts()
     return rows
 
@@ -570,9 +709,11 @@ def phase_folded_serving(dev, card: str, batches):
             torch.cuda.synchronize()
             fwd[name].append((time.perf_counter() - t0) * 1e3)
     log(f"folded: forward ms per batch of {BATCH} (mean of "
-        f"{len(batches)}, synchronized): " + ", ".join(
+        f"{len(batches)}, synchronized, in turns): " + ", ".join(
             f"{name} {np.mean(v):.2f}" for name, v in fwd.items())
         + f" [{card}]")
+    log(f"folded: folded-fused faster than folded-unfused: "
+        f"{np.mean(fwd['folded-fused']) < np.mean(fwd['folded-unfused'])}")
 
     # Distance to the float32 unfolded forward (TF32 off).
     images = truth_engine.place(*batches[0])[0]
@@ -631,13 +772,17 @@ def main() -> int:
     launches = phase_serving(dev, card, batches)
     for key in ("paf_score", "associate_limb"):
         rows[key]["launches"] = launches[key]
+        rows[key]["launches_per_forward"] = launches[key] / (
+            TIMED_BATCHES + STREAM_BATCHES)
     fused_rows = phase_fused_kernels(dev, card)
     launches = phase_folded_serving(dev, card, batches)
     for key, row in fused_rows.items():
         row["launches"] = launches[key]
+        row["launches_per_forward"] = launches[key] / len(batches)
     rows.update(fused_rows)
     keys = ("name", "route", "source", "replaces", "launches",
-            "max_abs_err", "ms", "plain_ms")
+            "launches_per_forward", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "bound_kind", "share", "library_ms")
     summary = [{**{k: row[k] for k in keys},
                 **{k: v for k, v in row.items() if k not in keys}}
                for row in rows.values()]

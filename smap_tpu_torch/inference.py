@@ -46,7 +46,8 @@ class SMAPInference:
         dtype (its outputs are float32 either way).
       refine_state_dict: optional RefineNet weights; enables the lift.
       do_flip: horizontal-flip test-time augmentation, as one 2B forward.
-      device: where everything runs; ``"cuda"`` raises without a card.
+      device: where everything runs: the card unless ``"cpu"`` is asked
+        for; ``"cuda"`` raises on a host without a card.
       quantized: ``"folded"`` serves with BatchNorm folded into the conv
         weights, folded once here (``models.quantize.fold_bn_state_dict``)
         unless ``cfg.model.quantized`` is already ``"folded"``, in which
@@ -59,7 +60,7 @@ class SMAPInference:
     def __init__(self, state_dict: Mapping[str, torch.Tensor],
                  cfg: Config = Config(),
                  refine_state_dict: Optional[Mapping[str, torch.Tensor]] = None,
-                 do_flip: bool = False, device="cpu", quantized=False,
+                 do_flip: bool = False, device="cuda", quantized=False,
                  fuse_stem: bool = False, fuse_bottleneck: bool = False):
         if quantized and not cfg.model.quantized:
             state_dict = fold_bn_state_dict(state_dict)
@@ -210,15 +211,13 @@ def run_inference(image_dir: str, state_dict: Mapping[str, torch.Tensor],
                   cfg: Config = Config(),
                   refine_state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                   do_flip: bool = False, batch_size: int = 16,
-                  output_json: Optional[str] = None, device="cpu",
+                  output_json: Optional[str] = None, device="cuda",
                   quantized=False, fuse_stem: bool = False,
                   fuse_bottleneck: bool = False) -> Dict[str, Any]:
     """Inference over a directory of images (jpg / png / jpeg, recursive):
     letterbox on the host (OpenCV), run the pipeline, return (and
     optionally write) the reference's result JSON. ``quantized``,
     ``fuse_stem`` and ``fuse_bottleneck`` go to ``SMAPInference``."""
-    import cv2
-
     from smap_tpu_torch.data.preprocess import letterbox_image
 
     paths: List[str] = []
@@ -234,6 +233,8 @@ def run_inference(image_dir: str, state_dict: Mapping[str, torch.Tensor],
     chunks = collections.deque()
 
     def batches():
+        import cv2
+
         for start in range(0, len(paths), batch_size):
             chunk = paths[start:start + batch_size]
             imgs, scales = [], []

@@ -15,7 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from smap_tpu_torch.ops.fused_block import fused_bottleneck
+from smap_tpu_torch.ops.fused_block import (fused_bottleneck,
+                                           pack_bottleneck_for_kernel)
 
 # A bottleneck fuses only when its height is a multiple of this: the JAX
 # package's condition (its kernel's row band), kept so that the same blocks
@@ -60,15 +61,15 @@ class PackedWeights:
     or cast (``_apply``); the key (each source tensor's storage and
     version counter) also catches an in-place update of a weight."""
 
-    def __init__(self, pack: Callable[..., Tuple[torch.Tensor, ...]]):
+    def __init__(self, pack: Callable[..., tuple]):
         self._pack = pack
         self.clear()
 
     def clear(self) -> None:
         self._key = None
-        self._value: Tuple[torch.Tensor, ...] = ()
+        self._value: tuple = ()
 
-    def get(self, sources: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
+    def get(self, sources: Sequence[torch.Tensor]) -> tuple:
         key = tuple((t.data_ptr(), t._version) for t in sources)
         if key != self._key:
             with torch.no_grad():
@@ -102,12 +103,13 @@ def _matrix(w: torch.Tensor) -> torch.Tensor:
 
 
 def _pack_bottleneck(w1, b1, w2, b2, w3, b3, wd=None, bd=None):
-    packed = (_matrix(w1), _bias(b1),
-              w2.detach().permute(2, 3, 1, 0).to(torch.bfloat16).contiguous(),
-              _bias(b2), _matrix(w3), _bias(b3))
+    """(the plain layout's weights, kernel D's image of them)."""
+    plain = (_matrix(w1), _bias(b1),
+             w2.detach().permute(2, 3, 1, 0).to(torch.bfloat16).contiguous(),
+             _bias(b2), _matrix(w3), _bias(b3))
     if wd is not None:
-        packed += (_matrix(wd), _bias(bd))
-    return packed
+        plain += (_matrix(wd), _bias(bd))
+    return plain, pack_bottleneck_for_kernel(*plain)
 
 
 class Bottleneck(PackedModule):
@@ -148,10 +150,11 @@ class Bottleneck(PackedModule):
         if self.downsample is not None:
             convs.append(self.downsample)
         sources = [t for c in convs for t in (c.conv.weight, c.conv.bias)]
+        plain, packed = self._packed.get(sources)
         # NCHW in channels_last memory is NHWC: the permutes move no data.
         y = fused_bottleneck(
-            x.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous(),
-            *self._packed.get(sources))
+            x.permute(0, 2, 3, 1).to(torch.bfloat16).contiguous(), *plain,
+            packed=packed)
         return y.permute(0, 3, 1, 2).to(x.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,7 @@ from smap_tpu_torch.config import ModelConfig
 from smap_tpu_torch.models.layers import (Bottleneck, ConvBnRelu,
                                           PackedModule, PackedWeights,
                                           max_pool_3x3_s2, resize_bilinear)
-from smap_tpu_torch.ops.fused_stem import fused_stem
+from smap_tpu_torch.ops.fused_stem import fused_stem, pack_stem_for_kernel
 
 RESNET50_LAYERS = (3, 4, 6, 3)
 
@@ -29,8 +29,9 @@ ALL_HEADS: Tuple[Heads, ...] = ((True, True, True),) * 4
 
 
 def _pack_stem(kernel: torch.Tensor, bias: torch.Tensor):
-    return (kernel.detach().to(torch.bfloat16).contiguous(),
-            bias.detach().float().contiguous())
+    kernel = kernel.detach().to(torch.bfloat16).contiguous()
+    return kernel, bias.detach().float().contiguous(), pack_stem_for_kernel(
+        kernel)
 
 
 class ResNetTop(PackedModule):
@@ -56,12 +57,12 @@ class ResNetTop(PackedModule):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self._fuse_eligible(x):
-            kernel, bias = self._packed.get([self.conv.conv.weight,
-                                             self.conv.conv.bias])
+            kernel, bias, packed = self._packed.get([self.conv.conv.weight,
+                                                     self.conv.conv.bias])
             # NCHW in channels_last memory is NHWC: the permutes move no
             # data.
             y = fused_stem(x.permute(0, 2, 3, 1).to(torch.bfloat16)
-                           .contiguous(), kernel, bias)
+                           .contiguous(), kernel, bias, packed=packed)
             return y.permute(0, 3, 1, 2).to(x.dtype)
         return max_pool_3x3_s2(self.conv(x))
 

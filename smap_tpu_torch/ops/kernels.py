@@ -34,8 +34,8 @@ SOURCES = ("paf_score.cu", "associate_limb.cu", "fused_stem.cu",
 # -fmad=false: the PAF kernel must round each product and sum as the plain
 # version does (a contracted FMA moves sample points across .5 boundaries
 # and samples across the threshold). No fast math: sqrtf and / stay IEEE.
-# The stem kernel's multiply-adds are explicit __fmaf_rn calls, which the
-# flag leaves alone; the bottleneck kernel multiplies on the tensor cores.
+# The stem and bottleneck kernels multiply on the tensor cores, which the
+# flag leaves alone.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-fmad=false")
 
@@ -43,8 +43,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # peak in a 128-thread block.
 MAX_ASSOC_PEAKS = 128
 
-# The stem kernel's output channels (a compile-time constant of the kernel).
-STEM_COUT = 64
+# The stem kernel's output channels (a compile-time constant of the kernel)
+# and the length of its weight rows (ops/fused_stem.py, STEM_ROW).
+STEM_COUT, STEM_ROW = 64, 232
 
 LAUNCHES: Dict[str, int] = {"paf_score": 0, "associate_limb": 0,
                             "fused_stem": 0, "fused_bottleneck": 0}
@@ -132,7 +133,7 @@ def _load() -> ctypes.CDLL:
             lib.associate_limb_launch.restype = I
             lib.fused_stem_launch.argtypes = [P, P, P, P, I, I, I, I, P]
             lib.fused_stem_launch.restype = I
-            lib.fused_bottleneck_launch.argtypes = [P] * 10 + [I] * 6 + [P]
+            lib.fused_bottleneck_launch.argtypes = [P] * 4 + [I] * 6 + [P]
             lib.fused_bottleneck_launch.restype = I
             _lib = lib
     return _lib
@@ -226,13 +227,14 @@ def associate_limb(scores_all: torch.Tensor,
     return assign
 
 
-def fused_stem(x: torch.Tensor, kernel: torch.Tensor,
+def fused_stem(x: torch.Tensor, packed: torch.Tensor,
                bias: torch.Tensor) -> torch.Tensor:
     """``fused_stem_kernel``: maxpool3x3/2(relu(conv7x7/2(x) + bias)).
 
-    x [B, H, W, Cin] bf16 NHWC (Cin 3 or 4); kernel [64, Cin, 7, 7] bf16;
-    bias [64] f32; all contiguous on one CUDA device. Returns
-    [B, Hp, Wp, 64] bf16 NHWC, Hp = ceil(ceil(H / 2) / 2).
+    x [B, H, W, Cin] bf16 NHWC (Cin 3 or 4); packed [64, 232] bf16, the
+    kernel's weight rows (``ops.fused_stem.pack_stem_for_kernel``); bias
+    [64] f32; all contiguous on one CUDA device. Returns [B, Hp, Wp, 64]
+    bf16 NHWC, Hp = ceil(ceil(H / 2) / 2).
     """
     if x.ndim != 4:
         raise ValueError("x must be [B, H, W, Cin]")
@@ -240,8 +242,9 @@ def fused_stem(x: torch.Tensor, kernel: torch.Tensor,
     if cin not in (3, 4):
         raise ValueError(f"fused_stem_kernel takes Cin 3 or 4, got {cin}")
     dev = x.device
-    _check(x, "x", torch.bfloat16, (B, H, W, cin), dev)
-    _check(kernel, "kernel", torch.bfloat16, (STEM_COUT, cin, 7, 7), dev)
+    _check(x, "x", torch.bfloat16, (B, H, W, cin), dev, align=8)
+    _check(packed, "packed", torch.bfloat16, (STEM_COUT, STEM_ROW), dev,
+           align=16)
     _check(bias, "bias", torch.float32, (STEM_COUT,), dev)
     lib = _load()
     hp, wp = (H + 3) // 4, (W + 3) // 4
@@ -251,60 +254,52 @@ def fused_stem(x: torch.Tensor, kernel: torch.Tensor,
         return out
     with torch.cuda.device(dev):
         err = lib.fused_stem_launch(
-            x.data_ptr(), kernel.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            x.data_ptr(), packed.data_ptr(), bias.data_ptr(), out.data_ptr(),
             B, H, W, cin, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "fused_stem_kernel")
     LAUNCHES["fused_stem"] += 1
     return out
 
 
-def fused_bottleneck(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-                     w2: torch.Tensor, b2: torch.Tensor, w3: torch.Tensor,
-                     b3: torch.Tensor, wd: Optional[torch.Tensor] = None,
-                     bd: Optional[torch.Tensor] = None) -> torch.Tensor:
+def fused_bottleneck(x: torch.Tensor, packed) -> torch.Tensor:
     """``fused_bottleneck_kernel``: one BN-folded stride-1 bottleneck.
 
-    x [B, H, W, Cin] bf16 NHWC; w1 [Cin, Cm], w2 [3, 3, Cm, Cm], w3
-    [Cm, Cout], wd [Cin, Cout] or None, bf16; biases f32; all contiguous on
-    one CUDA device; Cin, Cm, Cout multiples of 16. Returns
+    x [B, H, W, Cin] bf16 NHWC, contiguous on a CUDA device; ``packed`` the
+    kernel's weights on the same device (``ops.fused_block.
+    pack_bottleneck_for_kernel``). Cin and Cout multiples of 16, Cin <= 256
+    (<= 64 with a projection), Cm <= 64, Cout <= 256. Returns
     [B, H, W, Cout] bf16 NHWC.
     """
-    if x.ndim != 4 or w1.ndim != 2 or w3.ndim != 2:
-        raise ValueError("x must be [B, H, W, Cin], w1 [Cin, Cm], "
-                         "w3 [Cm, Cout]")
+    if x.ndim != 4:
+        raise ValueError("x must be [B, H, W, Cin]")
     B, H, W, cin = x.shape
-    cm, cout = w1.shape[1], w3.shape[1]
-    if cin % 16 or cm % 16 or cout % 16:
+    cout = packed.cout
+    if cin != packed.cin:
+        raise ValueError(f"x has {cin} channels, the weights {packed.cin}")
+    if cin % 16 or cout % 16:
         raise ValueError(f"fused_bottleneck_kernel takes channels in "
-                         f"multiples of 16, got {cin}, {cm}, {cout}")
-    if (wd is None) != (bd is None):
-        raise ValueError("wd and bd go together")
-    if wd is None and cin != cout:
-        raise ValueError("an identity residual needs Cin == Cout")
+                         f"multiples of 16, got {cin}, {cout}")
+    if cin > 256 or cout > 256 or packed.cm > 64 or (packed.proj
+                                                      and cin > 64):
+        raise ValueError(f"fused_bottleneck_kernel takes Cin <= 256 (<= 64 "
+                         f"with a projection), Cm <= 64, Cout <= 256; got "
+                         f"{cin}, {packed.cm}, {cout}")
     dev = x.device
-    # x is read 16 bytes at a time; the weights are wmma tiles, which
-    # need 32-byte aligned rows.
+    nk = -(-cin // 64)
+    wbytes = (nk + 9 + 4 + 4 * packed.proj) * 8192
+    # x is read by TMA and 16 bytes at a time; the weights 16 at a time.
     _check(x, "x", torch.bfloat16, (B, H, W, cin), dev, align=16)
-    _check(w1, "w1", torch.bfloat16, (cin, cm), dev, align=32)
-    _check(b1, "b1", torch.float32, (cm,), dev)
-    _check(w2, "w2", torch.bfloat16, (3, 3, cm, cm), dev, align=32)
-    _check(b2, "b2", torch.float32, (cm,), dev)
-    _check(w3, "w3", torch.bfloat16, (cm, cout), dev, align=32)
-    _check(b3, "b3", torch.float32, (cout,), dev)
-    if wd is not None:
-        _check(wd, "wd", torch.bfloat16, (cin, cout), dev, align=32)
-        _check(bd, "bd", torch.float32, (cout,), dev)
+    _check(packed.weights, "packed weights", torch.bfloat16, (wbytes // 2,),
+           dev, align=16)
+    _check(packed.bias, "packed bias", torch.float32, (640,), dev)
     lib = _load()
     out = torch.empty((B, H, W, cout), dtype=torch.bfloat16, device=dev)
     if out.numel() == 0:
         return out
     with torch.cuda.device(dev):
         err = lib.fused_bottleneck_launch(
-            x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), w3.data_ptr(), b3.data_ptr(),
-            None if wd is None else wd.data_ptr(),
-            None if bd is None else bd.data_ptr(), out.data_ptr(),
-            B, H, W, cin, cm, cout,
+            x.data_ptr(), packed.weights.data_ptr(), packed.bias.data_ptr(),
+            out.data_ptr(), B, H, W, cin, cout, int(packed.proj),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "fused_bottleneck_kernel")
     LAUNCHES["fused_bottleneck"] += 1

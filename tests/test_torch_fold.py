@@ -121,7 +121,7 @@ def test_quantized_config_takes_folded_only():
             ModelConfig(quantized=mode)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             SMAPInference(SMAP(ModelConfig()).state_dict(), Config(),
-                          quantized=mode)
+                          device="cpu", quantized=mode)
 
 
 def test_engine_folds_once_or_takes_folded_weights():
@@ -138,11 +138,11 @@ def test_engine_folds_once_or_takes_folded_weights():
     cfg = Config(model=dataclasses.replace(_folded_cfg(), quantized=False),
                  post=PostProcessConfig(max_peaks=31, assoc_peaks=8),
                  input_shape=INPUT_HW, output_shape=TINY_MODEL["output_shape"])
-    folds = SMAPInference(sd, cfg, quantized="folded")
+    folds = SMAPInference(sd, cfg, device="cpu", quantized="folded")
     assert folds.cfg.model.quantized == "folded"
     assert all(".bn." not in k for k in folds.model.state_dict())
     pre = SMAPInference(fold_bn_state_dict(sd), dataclasses.replace(
-        cfg, model=_folded_cfg()))
+        cfg, model=_folded_cfg()), device="cpu")
     frames = np.random.RandomState(5).randint(0, 256, (2, *INPUT_HW, 3),
                                               np.uint8)
     a = folds.forward(torch.from_numpy(frames))

@@ -150,3 +150,70 @@ def test_model_fuses_three_blocks_per_stage(monkeypatch):
     with torch.no_grad():
         model.infer(torch.zeros((1, *INPUT_HW, 3)))
     assert calls == {"jax": 9, "port": 9}
+
+
+@pytest.mark.parametrize("cin,cm,cout,proj", [
+    (64, 64, 256, True),      # layer1_0
+    (256, 64, 256, False),    # layer1_1, layer1_2
+    (32, 16, 48, True),       # padded Cin, Cm and Cout
+    (16, 16, 16, False),
+])
+def test_pack_bottleneck_for_kernel_round_trips(cin, cm, cout, proj):
+    """Kernel D's weight image: the swizzled block layout the kernel
+    addresses, conv3's column order, and the exact inverse."""
+    from smap_tpu_torch.ops.fused_block import (conv3_column_order,
+                                                pack_bottleneck_for_kernel,
+                                                unpack_bottleneck)
+
+    rng = np.random.RandomState(cin + cm + cout)
+    params = [torch.from_numpy(a) for a in _rand_block(rng, cin, cm, cout,
+                                                       proj)]
+    want = [p.to(torch.bfloat16) if p.ndim > 1 else p for p in params]
+    packed = pack_bottleneck_for_kernel(*params)
+    nk = -(-cin // 64)
+    assert packed.weights.dtype == torch.bfloat16
+    assert packed.weights.numel() * 2 == (nk + 9 + 4 + 4 * proj) * 8192
+    assert packed.bias.shape == (640,)
+
+    # Byte n*128 + ((k // 8) ^ (n % 8))*16 + (k % 8)*2 of a block holds
+    # B[n][k]: w1[k, n] in block 0, and w3[k, channel] in row
+    # conv3_column_order()[channel] of the w3 block.
+    img = packed.weights
+    n, k = torch.meshgrid(torch.arange(64), torch.arange(64), indexing="ij")
+    pos = n * 64 + ((k // 8) ^ (n % 8)) * 8 + k % 8
+    w1 = torch.zeros((64, 64), dtype=torch.bfloat16)
+    w1[:min(cin, 64), :cm] = want[0][:64]
+    assert torch.equal(img[pos], w1.t())
+    order = conv3_column_order()
+    w3_block = img[(nk + 9) * 4096:(nk + 13) * 4096]
+    col, k = torch.meshgrid(torch.arange(256), torch.arange(64),
+                            indexing="ij")
+    got_w3 = w3_block[col * 64 + ((k // 8) ^ (col % 8)) * 8 + k % 8]
+    w3 = torch.zeros((64, 256), dtype=torch.bfloat16)
+    w3[:cm, :cout] = want[4]
+    assert torch.equal(got_w3, w3.t()[order])
+
+    got = unpack_bottleneck(packed)
+    assert (got[6] is None) == (not proj)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("B,H,W", [(16, 128, 208), (3, 36, 100), (2, 20, 13)])
+def test_tile_walk_covers_every_pixel_once(B, H, W):
+    """Kernel D's persistent walk on a grid of 132 CTAs (one per H100 SM):
+    CTA c takes tiles c, c + 132, ...; the 8 x 16 tiles cover every output
+    pixel exactly once, ragged edges included."""
+    from smap_tpu_torch.ops.fused_block import (TILE_H, TILE_W,
+                                                tile_origins)
+
+    ntiles = B * -(-H // TILE_H) * -(-W // TILE_W)
+    grid = min(ntiles, 132)
+    count = torch.zeros((B, H, W), dtype=torch.int64)
+    for cta in range(grid):
+        tiles = torch.arange(cta, ntiles, grid)
+        assert len(tiles) == (ntiles - cta + grid - 1) // grid
+        for b, h0, w0 in zip(*(t.tolist() for t in tile_origins(tiles, B,
+                                                                 H, W))):
+            count[b, h0:h0 + TILE_H, w0:w0 + TILE_W] += 1
+    assert bool((count == 1).all())

@@ -131,3 +131,24 @@ def test_stem_fuses_where_jax_does(monkeypatch, hw, fused):
     with torch.no_grad():
         ResNetTop(folded=True, fuse=True)(torch.zeros((1, 3, *hw)))
     assert calls == {"jax": fused, "port": fused}
+
+
+@pytest.mark.parametrize("cin", [3, 4])
+def test_pack_stem_for_kernel_round_trips(cin):
+    """Kernel C's weight rows: element kh*32 + kw*4 + ci of row co is
+    kernel[co, ci, kh, kw], zero for the padding tap, the padding channel
+    and the row's tail; the inverse gives the kernel back exactly."""
+    from smap_tpu_torch.ops.fused_stem import (STEM_ROW, pack_stem_for_kernel,
+                                               unpack_stem_for_kernel)
+
+    k = torch.from_numpy(np.random.RandomState(cin).randn(64, cin, 7, 7)
+                         .astype(np.float32)).to(torch.bfloat16)
+    packed = pack_stem_for_kernel(k)
+    assert packed.shape == (64, STEM_ROW) and packed.dtype == torch.bfloat16
+    want = torch.zeros((64, STEM_ROW), dtype=torch.bfloat16)
+    for kh in range(7):
+        for kw in range(7):
+            for ci in range(cin):
+                want[:, kh * 32 + kw * 4 + ci] = k[:, ci, kh, kw]
+    assert torch.equal(packed, want)
+    assert torch.equal(unpack_stem_for_kernel(packed, cin), k)

@@ -95,7 +95,7 @@ def test_engine_decodes_folded_ref():
                  input_shape=input_shape, output_shape=out)
     engine = SMAPInference(smap_state_dict(jax.tree.map(np.asarray,
                                                         variables)),
-                           cfg, quantized="folded")
+                           cfg, device="cpu", quantized="folded")
     img = np.random.RandomState(5).randint(0, 256, (1, *input_shape, 3),
                                            np.uint8)
     scale = min(input_shape[1] / 640.0, input_shape[0] / 360.0)

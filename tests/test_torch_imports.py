@@ -46,21 +46,36 @@ def test_port_imports_no_jax():
     assert out.stdout.strip() == "ok"
 
 
-def test_chip_smoke_imports_no_jax_and_needs_a_card():
-    """chip_smoke.py imports nothing of JAX and, with no card, exits
-    non-zero before printing any result."""
+def _run_without_a_card(script):
+    """Runs ``script`` as __main__ with no card visible; checks it imported
+    nothing of JAX and returns the finished process."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["CUDA_VISIBLE_DEVICES"] = ""
     code = ("import runpy, sys\n"
             "try:\n"
-            "    runpy.run_path('chip_smoke.py', run_name='__main__')\n"
+            f"    runpy.run_path({script!r}, run_name='__main__')\n"
             "except SystemExit as e:\n"
             "    bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
             "                 ('jax', 'jaxlib', 'flax', 'smap_tpu'))\n"
             "    assert not bad, bad\n"
             "    raise\n")
-    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=300)
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+
+
+def test_chip_smoke_imports_no_jax_and_needs_a_card():
+    """chip_smoke.py imports nothing of JAX and, with no card, exits
+    non-zero before printing any result."""
+    out = _run_without_a_card("chip_smoke.py")
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+    assert "cuda" in out.stderr.lower()
+
+
+def test_profile_forward_imports_no_jax_and_needs_a_card():
+    """profile_forward.py, like chip_smoke.py, needs the card and imports
+    nothing of JAX."""
+    out = _run_without_a_card("profile_forward.py")
+    assert out.returncode != 0
+    assert out.stdout == ""
     assert "cuda" in out.stderr.lower()

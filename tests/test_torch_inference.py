@@ -142,6 +142,22 @@ def test_engine_rejects_missing_card():
         SMAPInference(smap_state_dict(jax_smap()[1]), cfg, device="cuda")
 
 
+def test_entry_points_default_to_the_card(tmp_path):
+    """Without ``device`` the engine and run_inference ask for the card:
+    on a host with none they raise, they do not run on the CPU."""
+    from smap_tpu_torch.inference import SMAPInference, run_inference
+    from smap_tpu_torch.models.convert import smap_state_dict
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    _, cfg = port_configs()
+    sd = smap_state_dict(jax_smap()[1])
+    with pytest.raises(RuntimeError, match="cuda"):
+        SMAPInference(sd, cfg)
+    with pytest.raises(RuntimeError, match="cuda"):
+        run_inference(str(tmp_path), sd, cfg)
+
+
 def test_run_inference_over_a_directory(tmp_path):
     """Images on disk -> the reference JSON: one item per image (the tail
     batch padded and cut), each as run_batch decodes it."""
@@ -162,11 +178,11 @@ def test_run_inference_over_a_directory(tmp_path):
                     rng.randint(0, 256, (48, 80, 3)).astype(np.uint8))
     out = tmp_path / "out" / "result.json"
     result = run_inference(str(tmp_path), sd, cfg, batch_size=2,
-                           output_json=str(out))
+                           output_json=str(out), device="cpu")
     assert json.loads(out.read_text()) == result
     assert [p["image_path"] for p in result["3d_pairs"]] == sorted(names)
 
-    engine = SMAPInference(sd, cfg)
+    engine = SMAPInference(sd, cfg, device="cpu")
     for pair in result["3d_pairs"]:
         img, scale = letterbox_image(
             cv2.imread(str(tmp_path / pair["image_path"])), cfg.input_shape)

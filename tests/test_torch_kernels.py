@@ -118,7 +118,8 @@ def _stem_inputs(gen, B, H, W, cin, bias_value=None):
 
 @pytest.mark.parametrize("B,H,W,cin", [(2, 64, 96, 3), (1, 32, 48, 3),
                                        (2, 64, 64, 4), (1, 128, 96, 3),
-                                       (3, 30, 50, 3), (1, 5, 7, 3)])
+                                       (3, 30, 50, 3), (1, 5, 7, 3),
+                                       (2, 30, 50, 3), (1, 512, 832, 3)])
 def test_fused_stem_kernel_matches_plain(dev, B, H, W, cin):
     from smap_tpu_torch.ops import kernels
     from smap_tpu_torch.ops.fused_stem import fused_stem
@@ -173,6 +174,10 @@ def _block_inputs(gen, B, H, W, cin, cm, cout, proj):
     (1, 20, 40, 64, 64, 256, True),       # H not a multiple of the tile
     (2, 128, 208, 64, 64, 256, True),     # layer1_0 at the serving shape
     (2, 128, 208, 256, 64, 256, False),   # layer1_1 / layer1_2
+    (1, 8, 100, 256, 64, 256, False),     # batch 1, one tile row, W = 100
+    (3, 40, 13, 64, 64, 256, True),       # W = 13: one ragged tile column
+    (5, 64, 100, 256, 64, 256, False),    # 280 tiles: not a multiple of 132
+    (1, 128, 208, 64, 64, 256, True),     # batch 1 at the serving width
 ])
 def test_fused_bottleneck_kernel_matches_plain(dev, B, H, W, cin, cm, cout,
                                                proj):
@@ -195,18 +200,29 @@ def test_fused_bottleneck_kernel_matches_plain(dev, B, H, W, cin, cm, cout,
 def test_fused_kernels_reject_what_they_do_not_take(dev):
     from smap_tpu_torch.ops import kernels
 
+    from smap_tpu_torch.ops.fused_block import pack_bottleneck_for_kernel
+    from smap_tpu_torch.ops.fused_stem import pack_stem_for_kernel
+
     gen = torch.Generator().manual_seed(0)
     x, k, b = (t.to(dev) for t in _stem_inputs(gen, 1, 32, 48, 3))
+    packed = pack_stem_for_kernel(k)
     with pytest.raises(ValueError):        # not contiguous NHWC
-        kernels.fused_stem(x.permute(0, 2, 1, 3), k, b)
+        kernels.fused_stem(x.permute(0, 2, 1, 3), packed, b)
     with pytest.raises(ValueError):        # f32 image
-        kernels.fused_stem(x.float(), k, b)
+        kernels.fused_stem(x.float(), packed, b)
+    with pytest.raises(ValueError):        # weights not packed
+        kernels.fused_stem(x, k, b)
     args = [t.to(dev) for t in _block_inputs(gen, 1, 8, 16, 32, 16, 32,
                                              False)]
+    packed = pack_bottleneck_for_kernel(*args[1:])
     with pytest.raises(ValueError):        # channels not multiples of 16
-        kernels.fused_bottleneck(args[0][..., :24].contiguous(), *args[1:])
+        kernels.fused_bottleneck(args[0][..., :24].contiguous(), packed)
     with pytest.raises(ValueError):        # bf16 bias
-        kernels.fused_bottleneck(*args[:2], args[2].bfloat16(), *args[3:])
+        kernels.fused_bottleneck(args[0], packed._replace(
+            bias=packed.bias.bfloat16()))
+    with pytest.raises(ValueError):        # a projection needs Cin <= 64
+        pack_bottleneck_for_kernel(*_block_inputs(gen, 1, 8, 16, 128, 16, 128,
+                                                  True)[1:])
 
 
 def test_engine_serves_frames_already_on_the_card(dev):
