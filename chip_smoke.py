@@ -7,16 +7,22 @@ Phases (each prints what it measured; any failure raises and the script
 exits non-zero with no result line):
 
 1. build: compile ``smap_tpu_torch/csrc/*.cu`` with nvcc for sm_90a.
-2. kernels: each kernel against its plain PyTorch version on the card, at
-   the serving shapes (batch 16, K = 40 and 127) and on the golden scenes'
-   peaks; times of both.
+2. kernels: kernel A (PAF scoring, on channels-last maps as the decode
+   gives them) within 1e-5 of its plain version, and kernel B (the whole
+   association, one launch) bit-equal to its plain version, on the golden
+   scenes (K = 127) and at the serving shapes (batch 16; A at K = 40 and
+   127; B at K = 8, 40, 127 and 128, on tables with ties, NaN entries, -1
+   rows, empty joints, an image with no root, tied, NaN and signed-zero
+   root depths); times of both at K = 40 and 127, B's also per step of
+   its 4 x K chain.
 3. golden: the rendered scenes of ``tests/golden/decode_corpus.json``
    (base, rung8, flip_tta) decoded on the card through the kernels.
 4. serving: ``SMAPInference`` at full width (ModelConfig() defaults,
    512x832, seeded random weights, bf16 compute) on batches of 16
    letterboxed uint8 frames: ``run_batch`` calls and one ``run_stream``
-   over 4 batches, with the kernels' launch counts, forward / post ms,
-   img/s and peak memory; one batch decoded again with the plain versions.
+   over 4 batches, with the kernels' launch counts (one A and one B per
+   batch), forward / post ms, img/s and peak memory; one batch decoded
+   again with the plain versions.
 5. fused kernels: kernel C (stem) and kernel D (bottleneck) against their
    plain versions on the card in bf16, at the serving shapes (the stem on
    [16, 512, 832, 3], the bottleneck on [16, 128, 208] with 64 -> 64 -> 256
@@ -29,8 +35,8 @@ exits non-zero with no result line):
 6. folded serving: ``SMAPInference(quantized="folded", fuse_stem=True,
    fuse_bottleneck=True)`` at full width on the frames of phase 4, with
    seeded BatchNorm statistics: 1 stem and 9 bottleneck launches per
-   forward; forward ms of the folded-fused, folded-unfused (cuDNN) and
-   unfolded engines; the folded-fused maps' distance to a float32 forward
+   forward, 1 A and 1 B per decode; forward ms of the folded-fused,
+   folded-unfused (cuDNN) and unfolded engines; the folded-fused maps' distance to a float32 forward
    within 2x the unfolded bf16 engine's + 1e-4; one batch decoded end to
    end.
 
@@ -97,20 +103,28 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
+def cuda_ms(fn, iters: int, warmup: int = 2, ahead: bool = False) -> float:
     """Mean device time of ``fn()`` in ms, from CUDA events around
-    ``iters`` back-to-back calls."""
+    ``iters`` back-to-back calls. ``ahead``: queue the calls behind a
+    ~10 ms spin on the card first, so that a kernel shorter than its
+    wrapper's host time is timed on the device alone; the median of 5
+    such runs."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    runs = []
+    for _ in range(5 if ahead else 1):
+        if ahead:
+            torch.cuda._sleep(20_000_000)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        runs.append(start.elapsed_time(end) / iters)
+    return float(np.median(runs))
 
 
 def in_turns(fns, iters: int):
@@ -168,15 +182,89 @@ def check_paf(table_k: torch.Tensor, table_p: torch.Tensor,
     return err
 
 
+def paf_work(peaks, limb_pairs: torch.Tensor, num_samples: int = 25):
+    """(scored pairs, samples) of one table: each pair of valid peaks is
+    sampled at its own n_pts points (the kernel's and the plain version's
+    formula)."""
+    src, dst = limb_pairs[:, 0].long(), limb_pairs[:, 1].long()
+    K = peaks.xy.shape[2]
+    vec = peaks.xy[:, dst][:, :, None] - peaks.xy[:, src][:, :, :, None]
+    vmax = torch.maximum(vec[..., 0].abs(), vec[..., 1].abs())
+    n_pts = torch.clamp(torch.floor(torch.sqrt(5.0 * vmax) + 0.5), 5,
+                        num_samples)
+    ia = torch.arange(K, device=vec.device)
+    cnt = peaks.count.long()
+    valid = ((ia[:, None] < cnt[:, src][:, :, None, None])
+             & (ia[None, :] < cnt[:, dst][:, :, None, None]))
+    return float(valid.sum()), float(torch.where(valid, n_pts, 0.0).sum())
+
+
+def association_inputs(gen: torch.Generator, B: int, K: int, dev,
+                       h: int = 128, w: int = 208):
+    """Peaks, a score table and a root-depth map with what kernel B must
+    get right: tables quantized to 0.1 (ties), NaN entries, -1 rows,
+    joints with no peaks, an image with no root, tied and NaN root depths,
+    -0 and +0 depths, dst peaks on their src (limb distance 0)."""
+    peaks = random_peaks(gen, B, 15, K, h, w, torch.device("cpu"))
+    xy, score, count = (t.clone() for t in peaks)
+    count[1, 2] = 0                                    # no root
+    count[2, 9] = 0                                    # an empty joint
+    count[3, 0] = 0                                    # flipped limb's dst
+    xy[0, 0, :3] = xy[0, 2, :3]                        # dst on its src
+    score[0, 3, :2] = 0.0                              # missing src joint
+    valid = torch.arange(K)[None, None, :] < count[..., None]
+    xy = torch.where(valid[..., None], xy, 0.0)
+    score = torch.where(valid, score, 0.0)
+    table = torch.round((torch.rand((B, 14, K, K), generator=gen) * 2 - 1)
+                        * 10) / 10
+    table[torch.rand((B, 14, K, K), generator=gen) < 0.02] = float("nan")
+    table[torch.rand((B, 14, K), generator=gen) < 0.1] = -1.0
+    rdm = torch.round(torch.rand((B, h, w), generator=gen) * 3) / 2
+    rdm[0][torch.rand((h, w), generator=gen) < 0.05] = float("nan")
+    rdm[4, : h // 2] = -0.0
+    rdm[4, h // 2:] = 0.0
+    from smap_tpu_torch.ops.nms import Peaks
+
+    return (Peaks(xy.to(dev), score.to(dev), count.to(dev)), table.to(dev),
+            rdm.to(dev))
+
+
+def check_bodies(got, want, label: str) -> None:
+    """Kernel B against the plain association: every output to the bit
+    (NaN depths included)."""
+    for name in ("joints", "count", "root_depth"):
+        a, b = getattr(got, name), getattr(want, name)
+        if (a.dtype != b.dtype or a.shape != b.shape or not torch.equal(
+                a.contiguous().view(torch.int32),
+                b.contiguous().view(torch.int32))):
+            raise AssertionError(f"associate {label}: {name} differs from "
+                                 f"the plain association")
+
+
+def association_work(peaks) -> tuple:
+    """(bytes, operations) of one association: the table rows the persons
+    read (n_person x dst count per limb), the peaks, the root depths read,
+    the bodies and depths written; ~12 float32 operations per adjusted
+    score."""
+    from smap_tpu_torch.ops.association import kernel_plan
+
+    B, J, K = peaks.xy.shape[:3]
+    steps = kernel_plan(2, 1.2, 4.0, torch.device("cpu")).steps.long()
+    cnt = peaks.count.cpu().long().clamp(0, K)
+    entries = float((cnt[:, 2:3] * cnt[:, steps[:, 2]]).sum())
+    nbytes = (entries * 4 + peaks.xy.numel() * 4 + peaks.score.numel() * 4
+              + cnt.numel() * 4 + B * K * 4 + B * K * J * 16 + B * K * 4)
+    return nbytes, 12.0 * entries
+
+
 def phase_kernels(dev, card: str):
     """Kernel A and B against their plain versions; returns the summary
     rows (without launches)."""
     from smap_tpu_torch import golden
     from smap_tpu_torch.config import PAF_VECTOR, PostProcessConfig
     from smap_tpu_torch.ops import kernels
-    from smap_tpu_torch.ops.association import (associate_limb,
-                                                associate_limb_plain)
-    from smap_tpu_torch.ops.nms import Peaks, extract_peaks
+    from smap_tpu_torch.ops.association import associate
+    from smap_tpu_torch.ops.nms import extract_peaks
     from smap_tpu_torch.ops.paf import paf_scores
 
     post = PostProcessConfig()
@@ -187,88 +275,105 @@ def phase_kernels(dev, card: str):
     H, W, L, J = 128, 208, 14, 15
     rows = {}
 
-    # Kernel A on the golden scenes' peaks (full capacity 127).
+    # Kernels A and B on the golden scenes (full capacity 127), from the
+    # NHWC maps as the decode slices them: channels-last PAFs.
     err_a = 0.0
-    for seed, _, _, out2d, _, _ in golden.scene_inputs():
+    for seed, _, _, out2d, _, rd in golden.scene_inputs():
         maps = torch.from_numpy(out2d).to(dev).permute(2, 0, 1)[None]
         peaks = extract_peaks(maps[:, :J] / 255.0, max_peaks=127)
-        pafs = (maps[:, J:] / 127.0).contiguous()
+        pafs = maps[:, J:] / 127.0
         tk = paf_scores(pafs, peaks, limb_pairs)
         tp = paf_scores(pafs, peaks, limb_pairs, plain=True)
         torch.cuda.synchronize()
         err_a = max(err_a, check_paf(tk, tp, default_score,
                                      f"scene {seed}"))
-    log(f"kernels: paf_score == plain on the 5 golden scenes (K=127), "
-        f"max abs err {err_a:.3g}")
+        rdm = torch.from_numpy(rd).to(dev)[None, ..., 0]
+        check_bodies(associate(peaks, tp, rdm),
+                     associate(peaks, tp, rdm, plain=True), f"scene {seed}")
+    log(f"kernels: paf_score == plain and associate bit-equal to plain on "
+        f"the 5 golden scenes (K=127), paf max abs err {err_a:.3g}")
 
-    # Kernel A at the serving shapes, random maps and peak tables.
-    pafs = (torch.rand((BATCH, 2 * L, H, W), generator=gen) * 2 - 1).to(dev)
+    # Kernel A at the serving shapes: random maps, channels-last as the
+    # decode gives them, and random peak tables.
+    pafs = (torch.rand((BATCH, 2 * L, H, W), generator=gen) * 2 - 1).to(
+        dev).contiguous(memory_format=torch.channels_last)
     times_a, bounds_a = {}, {}
     for K in (40, 127):
         peaks = random_peaks(gen, BATCH, J, K, H, W, dev)
+        kernels.reset_launch_counts()
         tk = paf_scores(pafs, peaks, limb_pairs)
+        if kernels.LAUNCHES["paf_score"] != 1:
+            raise AssertionError("paf_score: channels-last maps did not "
+                                 "reach the kernel in one launch")
         tp = paf_scores(pafs, peaks, limb_pairs, plain=True)
         torch.cuda.synchronize()
         err_a = max(err_a, check_paf(tk, tp, default_score,
                                      f"B={BATCH} K={K}"))
-        ms = cuda_ms(lambda: paf_scores(pafs, peaks, limb_pairs), 20)
+        ms = cuda_ms(lambda: paf_scores(pafs, peaks, limb_pairs), 20,
+                     ahead=True)
         plain_ms = cuda_ms(lambda: paf_scores(pafs, peaks, limb_pairs,
                                               plain=True), 5)
         times_a[K] = (ms, plain_ms)
-        # What this run's peaks need: 25 samples of 2 floats per scored
-        # pair (at most the whole maps), the peak tables and the output.
-        cnt = peaks.count.long()
-        pairs = float((cnt[:, limb_pairs[:, 0].long()]
-                       * cnt[:, limb_pairs[:, 1].long()]).sum())
-        nbytes = (min(pairs * 25 * 2 * 4, pafs.numel() * 4)
-                  + peaks.xy.numel() * 4 + cnt.numel() * 4
-                  + BATCH * L * K * K * 4)
-        bounds_a[K] = bound(ms, nbytes, pairs * 25 * 8, F32_FLOPS)
-        log(f"kernels: paf_score B={BATCH} K={K} L={L} {H}x{W}: "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, max abs err "
-            f"{err_a:.3g} [{card}]")
+        # What this run's peaks need: each scored pair's own n_pts samples
+        # of 2 floats (at most the whole maps), the peak tables and the
+        # output; 8 operations a sample. PR 3's yardstick counted 25
+        # samples for every scored pair.
+        pairs, samples = paf_work(peaks, limb_pairs)
+        rest = (peaks.xy.numel() * 4 + peaks.count.numel() * 4
+                + BATCH * L * K * K * 4)
+        bounds_a[K] = bound(ms, min(samples * 8, pafs.numel() * 4) + rest,
+                            samples * 8, F32_FLOPS)
+        bounds_a[K]["bound_ms_25"] = bound(
+            ms, min(pairs * 25 * 8, pafs.numel() * 4) + rest,
+            pairs * 25 * 8, F32_FLOPS)["bound_ms"]
+        log(f"kernels: paf_score B={BATCH} K={K} L={L} {H}x{W} channels-"
+            f"last: {ms:.4f} ms, plain {plain_ms:.4f} ms, max abs err "
+            f"{err_a:.3g}; {pairs:.0f} pairs, {samples / pairs:.2f} samples "
+            f"a pair; bound {bounds_a[K]['bound_ms']:.4f} ms (25-sample "
+            f"yardstick {bounds_a[K]['bound_ms_25']:.4f}) [{card}]")
     rows["paf_score"] = dict(
         name="paf_score_kernel", route="cuda",
         source="smap_tpu_torch/csrc/paf_score.cu",
         replaces="smap_tpu/ops/pallas_kernels.py:62",
         max_abs_err=err_a, ms=times_a[40][0], plain_ms=times_a[40][1],
         **bounds_a[40], library_ms=None, ms_k127=times_a[127][0],
-        plain_ms_k127=times_a[127][1])
+        plain_ms_k127=times_a[127][1],
+        bound_ms_k127=bounds_a[127]["bound_ms"],
+        bound_ms_25_k127=bounds_a[127]["bound_ms_25"])
 
-    # Kernel B: random tables with ties, -inf rows and all -inf tables.
+    # Kernel B: the whole association, bit-equal to the plain loop.
     times_b = {}
-    for K in (8, 40, 127):
-        scores = torch.round((torch.rand((BATCH, K, K), generator=gen)
-                              * 2 - 1) * 10) / 10          # many ties
-        scores[torch.rand((BATCH, K), generator=gen) < 0.3] = float("-inf")
-        scores[0] = float("-inf")                          # nothing valid
-        scores[1, :, :] = 0.5                              # all tied
-        n_valid = torch.randint(0, K + 1, (BATCH, 1), generator=gen)
-        valid = torch.arange(K)[None, :] < n_valid
-        scores, valid = scores.to(dev), valid.to(dev)
-        got = associate_limb(scores, valid)
-        want = associate_limb_plain(scores, valid)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"associate_limb K={K}: "
-                                 f"{int((got != want).sum())} entries "
-                                 f"differ from the plain greedy")
-        ms = cuda_ms(lambda: associate_limb(scores, valid), 50)
-        plain_ms = cuda_ms(lambda: associate_limb_plain(scores, valid), 3)
-        # One table in and the assignment out per image; the greedy takes
-        # at most K steps of an argmax over the K x K table.
-        times_b[K] = (ms, plain_ms, bound(
-            ms, BATCH * K * K * 4 + BATCH * K + BATCH * K * 4,
-            BATCH * K ** 3, F32_FLOPS))
-        log(f"kernels: associate_limb B={BATCH} K={K}: equal; {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms [{card}]")
-    rows["associate_limb"] = dict(
-        name="associate_limb_kernel", route="cuda",
-        source="smap_tpu_torch/csrc/associate_limb.cu",
-        replaces="smap_tpu/ops/pallas_kernels.py:208",
-        max_abs_err=0.0, ms=times_b[40][0], plain_ms=times_b[40][1],
-        **times_b[40][2], library_ms=None, ms_k127=times_b[127][0],
-        plain_ms_k127=times_b[127][1])
+    for K in (8, 40, 127, 128):
+        peaks, table, rdm = association_inputs(gen, BATCH, K, dev)
+        kernels.reset_launch_counts()
+        got = associate(peaks, table, rdm)
+        if kernels.LAUNCHES["associate"] != 1:
+            raise AssertionError(f"associate K={K}: "
+                                 f"{kernels.LAUNCHES['associate']} launches")
+        check_bodies(got, associate(peaks, table, rdm, plain=True),
+                     f"B={BATCH} K={K}")
+        msg = f"kernels: associate B={BATCH} K={K}: bit-equal to plain"
+        if K in (40, 127):
+            ms = cuda_ms(lambda: associate(peaks, table, rdm), 50,
+                         ahead=True)
+            plain_ms = cuda_ms(lambda: associate(peaks, table, rdm,
+                                                 plain=True), 2)
+            nbytes, ops = association_work(peaks)
+            times_b[K] = dict(ms=ms, plain_ms=plain_ms,
+                              step_us=ms * 1e3 / (4 * K),
+                              **bound(ms, nbytes, ops, F32_FLOPS))
+            msg += (f"; {ms:.4f} ms ({times_b[K]['step_us']:.3f} us a step "
+                    f"of the 4 x K chain), plain {plain_ms:.4f} ms, bound "
+                    f"{times_b[K]['bound_ms']:.5f} ms "
+                    f"({times_b[K]['bound_kind']}) [{card}]")
+        log(msg)
+    rows["associate"] = dict(
+        name="associate_kernel", route="cuda",
+        source="smap_tpu_torch/csrc/associate.cu",
+        replaces="smap_tpu/ops/pallas_kernels.py:208", max_abs_err=0.0,
+        **times_b[40], library_ms=None,
+        **{f"{k}_k127": v for k, v in times_b[127].items()
+           if k not in ("bound_by", "bound_kind")})
     kernels.reset_launch_counts()
     return rows
 
@@ -285,9 +390,9 @@ def phase_golden(dev) -> None:
         golden.compare(got[name], want[name], label=name)
     n = len(golden.SCENES) * len(variants)
     if (kernels.LAUNCHES["paf_score"] != n
-            or kernels.LAUNCHES["associate_limb"] != 14 * n):
+            or kernels.LAUNCHES["associate"] != n):
         raise AssertionError(f"golden decode launches {kernels.LAUNCHES}, "
-                             f"want {n} / {14 * n}")
+                             f"want {n} of each of A and B")
     counts = {v: [r["count"] for r in got[v]] for v in variants}
     log(f"golden: base, rung8, flip_tta match the corpus through the "
         f"kernels (rtol {golden.RTOL}, atol {golden.ATOL}); counts {counts}")
@@ -379,10 +484,11 @@ def phase_serving(dev, card: str, batches):
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     n_batches = TIMED_BATCHES + n_stream
     if n_stream != STREAM_BATCHES or launches != {
-            "paf_score": n_batches, "associate_limb": 14 * n_batches,
+            "paf_score": n_batches, "associate": n_batches,
             "fused_stem": 0, "fused_bottleneck": 0}:
         raise AssertionError(f"serving: launches {launches} over "
-                             f"{n_batches} batches, want 1 and 14 per batch")
+                             f"{n_batches} batches, want 1 of A and 1 of B "
+                             f"per batch")
 
     log(f"serving: forward {np.mean(fwd_ms):.2f} ms, post "
         f"{np.mean(post_ms):.2f} ms per batch of {BATCH} (mean of "
@@ -687,13 +793,13 @@ def phase_folded_serving(dev, card: str, batches):
     t_batch = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
     n = len(batches)
-    want = {"paf_score": n, "associate_limb": 14 * n, "fused_stem": n,
+    want = {"paf_score": n, "associate": n, "fused_stem": n,
             "fused_bottleneck": 9 * n}
     if launches != want:
         raise AssertionError(f"folded: launches {launches} over {n} "
                              f"batches, want {want}")
     log(f"folded: launches {launches} over {n} batches (1 stem, 9 "
-        f"bottleneck, 1 paf_score, 14 associate_limb per batch)")
+        f"bottleneck, 1 paf_score, 1 associate per batch)")
     log(f"folded: folded-fused run_batch e2e {n * BATCH / t_batch:.1f} "
         f"img/s, {people} people decoded in {n} batches [{card}]")
 
@@ -770,7 +876,7 @@ def main() -> int:
     phase_golden(dev)
     batches = serving_batches(Config())
     launches = phase_serving(dev, card, batches)
-    for key in ("paf_score", "associate_limb"):
+    for key in ("paf_score", "associate"):
         rows[key]["launches"] = launches[key]
         rows[key]["launches_per_forward"] = launches[key] / (
             TIMED_BATCHES + STREAM_BATCHES)

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Where the device time of one serving forward goes, on a CUDA card.
+"""Where the device time of one serving forward, and of one decode, goes
+on a CUDA card.
 
     python3 profile_forward.py          # from the repository root, one card
 
@@ -10,8 +11,18 @@ BatchNorm statistics), warms each up, and runs ``torch.profiler`` over 3
 forwards of the same batch of 16 letterboxed frames per engine. Prints, per
 engine, the device time per forward summed over the card's kernels, by
 kind (kernel C, kernel D, convolutions, elementwise passes, ...) and the
-ten largest kernels by name, then the card's name and power limit. Needs
-the card: without one it exits non-zero.
+ten largest kernels by name.
+
+Then the decode: ``postprocess`` (peaks, kernel A, kernel B, depth, back-
+projection) of the unfolded engine's maps of that batch of 16, the frames
+of ``chip_smoke.py`` phase 4. It prints the synchronized host ms of a
+decode without the profiler, and from ``torch.profiler`` over 3 decodes:
+device ms and kernels per decode by kind, the device's idle share of
+each decode's window (from the decode's start on the host to the end of
+its last kernel), and the device kernels, copies and fills that one
+``associate`` call on the decode's own inputs puts on the card (profiled
+apart, 3 calls). Last, the card's name and power limit. Needs the card:
+without one it exits non-zero.
 """
 
 from __future__ import annotations
@@ -19,10 +30,12 @@ from __future__ import annotations
 import collections
 import re
 import sys
+import time
 
 import torch
 
 FORWARDS = 3
+DECODES = 3
 KINDS = (   # first match wins
     ("kernel D (fused_bottleneck_kernel)", r"fused_bottleneck_kernel"),
     ("kernel C (fused_stem_kernel)", r"fused_stem_kernel"),
@@ -36,8 +49,19 @@ KINDS = (   # first match wins
 )
 
 
-def kind_of(name: str) -> str:
-    for kind, pattern in KINDS:
+DECODE_KINDS = (
+    ("kernel A (paf_score_kernel)", r"paf_score_kernel"),
+    ("kernel B (associate*_kernel)", r"associate\w*_kernel"),
+    ("sort", r"sort|radix"),
+    ("index / gather / scatter", r"index|gather|scatter"),
+    ("reductions (sum, max, argmax, any)", r"reduce"),
+    ("copies and fills", r"copy|fill|memcpy|memset"),
+    ("elementwise", r"elementwise|vectorized|unrolled"),
+)
+
+
+def kind_of(name: str, kinds=KINDS) -> str:
+    for kind, pattern in kinds:
         if re.search(pattern, name, re.IGNORECASE):
             return kind
     return "other"
@@ -56,6 +80,104 @@ def device_times(prof) -> dict:
     return times
 
 
+def busy_us(intervals) -> float:
+    """Length of the union of (start, end) intervals."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def profile_decode(engine, frames, scales, card: str) -> None:
+    """Host ms of a decode, then device ms, kernels and idle share per
+    decode, and the device work of one ``associate`` call, from
+    torch.profiler."""
+    from torch.autograd import DeviceType
+
+    from smap_tpu_torch.ops import postprocess
+
+    images, info = engine.place(frames, scales)
+    maps = engine.forward(images)
+    for _ in range(3):
+        engine.postprocess(maps, info)
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        engine.postprocess(maps, info)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    print(f"decode: {sum(host) / len(host):.3f} ms per batch of "
+          f"{frames.shape[0]} on the host clock, synchronized, no profiler "
+          f"(mean of {len(host)}: {', '.join(f'{t:.3f}' for t in host)}) "
+          f"[{card}]")
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(DECODES):
+            with torch.profiler.record_function("decode"):
+                engine.postprocess(maps, info)
+                torch.cuda.synchronize()
+    events = prof.events()
+    windows = sorted((e.time_range.start, e.time_range.end) for e in events
+                     if e.name == "decode" and e.device_type == DeviceType.CPU)
+    # The range shows on the device timeline too; it is no kernel.
+    kernels = [e for e in events
+               if e.device_type == DeviceType.CUDA and e.name != "decode"]
+
+    # The association alone, on the arguments the decode gave it.
+    associate, calls = postprocess.associate, []
+
+    def capture(*args, **kw):
+        calls.append((args, kw))
+        return associate(*args, **kw)
+
+    postprocess.associate = capture
+    try:
+        engine.postprocess(maps, info)
+    finally:
+        postprocess.associate = associate
+    args, kw = calls[-1]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(DECODES):
+            associate(*args, **kw)
+        torch.cuda.synchronize()
+    in_associate = sum(e.device_type == DeviceType.CUDA
+                       for e in prof.events())
+    by_kind = collections.defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        by_kind[kind_of(e.name, DECODE_KINDS)][0] += e.time_range.elapsed_us()
+        by_kind[kind_of(e.name, DECODE_KINDS)][1] += 1
+    idle = []
+    for start, end in windows:
+        mine = [(e.time_range.start, e.time_range.end) for e in kernels
+                if start <= e.time_range.start < end]
+        stop = max([end] + [e for _, e in mine])
+        idle.append(1.0 - busy_us(mine) / (stop - start))
+    total = sum(us for us, _ in by_kind.values()) / DECODES / 1e3
+    print(f"decode: {total:.3f} device ms and {len(kernels) / DECODES:.0f} "
+          f"device kernels per decode (torch.profiler, mean of {DECODES}); "
+          f"device idle share of each decode's window "
+          f"{', '.join(f'{x:.3f}' for x in idle)}; one associate() call puts "
+          f"{in_associate / DECODES:.0f} kernels, copies and fills on the "
+          f"card [{card}]")
+    for kind, (us, n) in sorted(by_kind.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {us / DECODES / 1e3:8.3f} ms  {n / DECODES:5.0f} "
+              f"launches  {kind}")
+    by_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in kernels:
+        by_name[e.name][0] += e.time_range.elapsed_us()
+        by_name[e.name][1] += 1
+    print("  largest:")
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]:
+        print(f"  {us / DECODES / 1e3:8.3f} ms  {n / DECODES:5.0f} "
+              f"launches  {name[:100]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_forward: torch.cuda is not available; this script "
@@ -64,11 +186,13 @@ def main() -> int:
     from chip_smoke import card_line, perturbed_state_dict, serving_batches
     from smap_tpu_torch.config import Config
     from smap_tpu_torch.inference import SMAPInference
+    from smap_tpu_torch.models.smap import init_smap
     from smap_tpu_torch.runtime import set_tf32
 
     set_tf32(False)
     card = card_line()
     cfg = Config()
+    frames, scales = serving_batches(cfg)[0]
     sd = perturbed_state_dict(cfg.model, seed=0)
     engines = {
         "unfolded": SMAPInference(sd, cfg, device="cuda"),
@@ -77,7 +201,6 @@ def main() -> int:
         "folded-fused": SMAPInference(sd, cfg, device="cuda",
                                       quantized="folded", fuse_stem=True,
                                       fuse_bottleneck=True)}
-    frames, scales = serving_batches(cfg)[0]
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for name, engine in engines.items():
@@ -105,6 +228,10 @@ def main() -> int:
                                      key=lambda kv: -kv[1][0])[:10]:
             print(f"  {us / FORWARDS / 1e3:8.3f} ms  {n / FORWARDS:5.0f} "
                   f"launches  {kname[:100]}")
+    decoder = SMAPInference(init_smap(cfg.model, seed=0).state_dict(), cfg,
+                            device="cuda")
+    with torch.no_grad():
+        profile_decode(decoder, frames, scales, card)
     print(card)
     return 0
 

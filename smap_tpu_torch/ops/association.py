@@ -9,16 +9,19 @@
    that maximizes paf_score + min(1.2 * bone_len / root_depth / limb_dist
    / 4 - 1, 0); a pick needs a score strictly > 0.
 
-The per-limb score adjustment is plain PyTorch; the greedy itself is
-``associate_limb_kernel`` (``smap_tpu_torch/csrc/associate_limb.cu``) on a
-CUDA tensor and :func:`associate_limb_plain` on a CPU tensor, so a batch
-takes 14 launches.
+On a CUDA tensor the whole of it is one launch of ``associate_kernel``
+(``smap_tpu_torch/csrc/associate.cu``), which runs the limbs by waves
+(:func:`limb_waves`); on a CPU tensor, and with ``plain=True`` on any
+device, it is :func:`associate_plain`, a loop over the limbs around the
+greedy :func:`associate_limb_plain`.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from smap_tpu_torch.config import BONE_LENGTHS, NUM_LIMBS, PAF_VECTOR
@@ -46,6 +49,81 @@ def _limb_order(num_limbs: int) -> Tuple[int, ...]:
     return tuple(order)
 
 
+def _limb_edges(root_idx: int) -> Tuple[Tuple[int, int, int, bool], ...]:
+    """(limb, src joint, dst joint, flip) in the greedy's limb order."""
+    edges = []
+    for limb in _limb_order(NUM_LIMBS):
+        flip = root_idx == 2 and limb == 1
+        src, dst = PAF_VECTOR[limb][::-1] if flip else PAF_VECTOR[limb]
+        edges.append((limb, src, dst, flip))
+    return tuple(edges)
+
+
+def limb_waves(root_idx: int = 2) -> Tuple[Tuple[int, ...], ...]:
+    """The limbs in waves whose greedies do not depend on each other.
+
+    Limb l reads only its src joint's column of the bodies / remap state
+    and writes only its dst joint's. When every dst is unique and not the
+    root, and every src is the root or the dst of an earlier limb in the
+    order, the limbs form a tree: a limb's wave is one more than that of
+    the limb that writes its src (the root's is 0). Running the waves in
+    order, the limbs of each wave in any order, gives the sequential
+    result bit for bit. Raises ValueError for a root whose limbs do not
+    form such a tree.
+    """
+    wave_of = {root_idx: 0}
+    waves = []
+    for limb, src, dst, _ in _limb_edges(root_idx):
+        if dst in wave_of:
+            raise ValueError(f"root {root_idx}: limb {limb} writes joint "
+                             f"{dst}, which is the root or written before")
+        if src not in wave_of:
+            raise ValueError(f"root {root_idx}: limb {limb} reads joint "
+                             f"{src} before any limb writes it")
+        wave_of[dst] = wave_of[src] + 1
+        if wave_of[dst] > len(waves):
+            waves.append([])
+        waves[wave_of[dst] - 1].append(limb)
+    return tuple(tuple(w) for w in waves)
+
+
+class KernelPlan(NamedTuple):
+    """What ``associate_kernel`` gets from the host besides the data.
+
+    steps: [L, 4] int32 (limb, src joint, dst joint, flip), wave by wave.
+    wave_starts: [n_waves + 1] int32, the first row of each wave in steps.
+    max_wave: the most limbs in one wave.
+    bone: [L] float32, ``bone_factor * bone_length`` per limb, rounded to
+      float32 as the plain version's product is.
+    inv_ds_scale: float32 ``1 / ds_scale``; PyTorch divides a CUDA tensor
+      by a Python scalar as a product with its reciprocal.
+    """
+
+    steps: torch.Tensor
+    wave_starts: torch.Tensor
+    max_wave: int
+    bone: torch.Tensor
+    inv_ds_scale: float
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_plan(root_idx: int, bone_factor: float, ds_scale: float,
+                device: torch.device) -> KernelPlan:
+    """The kernel's plan for this root on ``device`` (made once)."""
+    edges = {e[0]: e for e in _limb_edges(root_idx)}
+    waves = limb_waves(root_idx)
+    steps = tuple(tuple(int(v) for v in edges[limb])
+                  for wave in waves for limb in wave)
+    starts = tuple(int(v) for v in np.cumsum([0] + [len(w) for w in waves]))
+    bone = np.float32(bone_factor) * np.asarray(BONE_LENGTHS, np.float32)
+    return KernelPlan(
+        steps=device_constant(steps, torch.int32, device),
+        wave_starts=device_constant(starts, torch.int32, device),
+        max_wave=max(len(w) for w in waves),
+        bone=device_constant(tuple(bone.tolist()), torch.float32, device),
+        inv_ds_scale=float(np.float32(1.0) / np.float32(ds_scale)))
+
+
 def associate_limb_plain(scores_all: torch.Tensor,
                          dst_slot_valid: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch greedy: a loop over person rows, batched over images.
@@ -71,15 +149,6 @@ def associate_limb_plain(scores_all: torch.Tensor,
     return assign
 
 
-def associate_limb(scores_all: torch.Tensor, dst_slot_valid: torch.Tensor,
-                   *, plain: bool = False) -> torch.Tensor:
-    """Per-limb greedy: the kernel on CUDA, the plain loop on the CPU (or
-    anywhere with ``plain=True``)."""
-    if plain or scores_all.device.type == "cpu":
-        return associate_limb_plain(scores_all, dst_slot_valid)
-    return kernels.associate_limb(scores_all, dst_slot_valid)
-
-
 def associate(peaks: Peaks, paf_score_table: torch.Tensor,
               root_depth_map: torch.Tensor, *, root_idx: int = 2,
               ds_scale: float = 4.0,
@@ -90,11 +159,31 @@ def associate(peaks: Peaks, paf_score_table: torch.Tensor,
       peaks: xy [B, J, K, 2], score [B, J, K], count [B, J].
       paf_score_table: [B, L, K, K] from ``paf_scores``.
       root_depth_map: [B, H, W] normalized root-depth map.
-      plain: run the greedy's plain version whatever the device.
+      plain: run the plain version whatever the device.
 
     Returns:
       Bodies with capacity K; rows >= count are all zero.
     """
+    if plain or peaks.xy.device.type == "cpu":
+        return associate_plain(peaks, paf_score_table, root_depth_map,
+                               root_idx=root_idx, ds_scale=ds_scale,
+                               bone_factor=bone_factor)
+    plan = kernel_plan(root_idx, bone_factor, ds_scale, peaks.xy.device)
+    joints, root_depth = kernels.associate(
+        peaks.xy, peaks.score, peaks.count, paf_score_table,
+        root_depth_map.contiguous(), plan.steps, plan.wave_starts, plan.bone,
+        root_idx=root_idx, max_wave=plan.max_wave,
+        inv_ds_scale=plan.inv_ds_scale)
+    return Bodies(joints=joints, count=peaks.count[:, root_idx],
+                  root_depth=root_depth)
+
+
+def associate_plain(peaks: Peaks, paf_score_table: torch.Tensor,
+                    root_depth_map: torch.Tensor, *, root_idx: int = 2,
+                    ds_scale: float = 4.0,
+                    bone_factor: float = 1.2) -> Bodies:
+    """Plain PyTorch association: :func:`associate`'s arguments and result,
+    the limbs one after the other in the order [1, 0, 2, ...]."""
     B, num_joints, K = peaks.xy.shape[0], peaks.xy.shape[1], peaks.xy.shape[2]
     dev = peaks.xy.device
     h, w = root_depth_map.shape[-2], root_depth_map.shape[-1]
@@ -132,11 +221,7 @@ def associate(peaks: Peaks, paf_score_table: torch.Tensor,
     bodies[:, :, root_idx, 3] = torch.where(person_valid, sorted_root_sc,
                                             zero)
 
-    for limb in _limb_order(NUM_LIMBS):
-        flip = root_idx == 2 and limb == 1
-        src_joint, dst_joint = PAF_VECTOR[limb][::-1] if flip else (
-            PAF_VECTOR[limb])
-
+    for limb, src_joint, dst_joint, flip in _limb_edges(root_idx):
         dst_size = peaks.count[:, dst_joint]                   # [B]
         dst_xy = peaks.xy[:, dst_joint]                        # [B, K, 2]
         dst_score = peaks.score[:, dst_joint]                  # [B, K]
@@ -164,7 +249,7 @@ def associate(peaks: Peaks, paf_score_table: torch.Tensor,
         scores_all = torch.where(src_ok[..., None], scores_all,
                                  neg_inf).contiguous()
 
-        assign = associate_limb(scores_all, dst_slot_valid, plain=plain)
+        assign = associate_limb_plain(scores_all, dst_slot_valid)
         take = (assign >= 0) & (dst_size > 0)[:, None]         # [B, K]
         max_idx = torch.clamp(assign, 0, K - 1).long()
 

@@ -29,7 +29,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("paf_score.cu", "associate_limb.cu", "fused_stem.cu",
+SOURCES = ("paf_score.cu", "associate.cu", "fused_stem.cu",
            "fused_bottleneck.cu")
 # -fmad=false: the PAF kernel must round each product and sum as the plain
 # version does (a contracted FMA moves sample points across .5 boundaries
@@ -39,15 +39,18 @@ SOURCES = ("paf_score.cu", "associate_limb.cu", "fused_stem.cu",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-fmad=false")
 
-# Largest peak capacity the association kernel takes: one thread per dst
-# peak in a 128-thread block.
+# Largest peak capacity the association kernel takes (a warp's lanes own 4
+# dst slots each), and the most limbs in one of its waves.
 MAX_ASSOC_PEAKS = 128
+MAX_WAVE_LIMBS = 8
+# Most samples per segment the PAF kernel takes (its unrolled bound).
+MAX_PAF_SAMPLES = 32
 
 # The stem kernel's output channels (a compile-time constant of the kernel)
 # and the length of its weight rows (ops/fused_stem.py, STEM_ROW).
 STEM_COUT, STEM_ROW = 64, 232
 
-LAUNCHES: Dict[str, int] = {"paf_score": 0, "associate_limb": 0,
+LAUNCHES: Dict[str, int] = {"paf_score": 0, "associate": 0,
                             "fused_stem": 0, "fused_bottleneck": 0}
 
 _lib: Optional[ctypes.CDLL] = None
@@ -129,8 +132,10 @@ def _load() -> ctypes.CDLL:
             lib.paf_score_launch.argtypes = [P, P, P, P, P, I, I, I, I, I, I,
                                              I, F, F, F, F, P]
             lib.paf_score_launch.restype = I
-            lib.associate_limb_launch.argtypes = [P, P, P, I, I, P]
-            lib.associate_limb_launch.restype = I
+            L64 = ctypes.c_longlong
+            lib.associate_launch.argtypes = ([P, L64, L64, L64] * 2
+                                             + [P] * 8 + [I] * 9 + [F, P])
+            lib.associate_launch.restype = I
             lib.fused_stem_launch.argtypes = [P, P, P, P, I, I, I, I, P]
             lib.fused_stem_launch.restype = I
             lib.fused_bottleneck_launch.argtypes = [P] * 4 + [I] * 6 + [P]
@@ -167,8 +172,10 @@ def paf_score(pafs: torch.Tensor, xy: torch.Tensor, count: torch.Tensor,
               num_samples: int) -> torch.Tensor:
     """``paf_score_kernel``: the [B, L, K, K] score table in one launch.
 
-    pafs [B, 2L, H, W] f32; xy [B, J, K, 2] f32; count [B, J] int32;
-    limb_pairs [L, 2] int32; all contiguous on one CUDA device.
+    pafs [B, 2L, H, W] f32 in channels-last memory (strides (2L H W, 1,
+    2L W, 2L), as the network's NHWC maps give it), 8-byte aligned; xy
+    [B, J, K, 2] f32; count [B, J] int32; limb_pairs [L, 2] int32; all on
+    one CUDA device, the last three contiguous. num_samples <= 32.
     """
     if pafs.ndim != 4 or xy.ndim != 4:
         raise ValueError("pafs must be [B, 2L, H, W] and xy [B, J, K, 2]")
@@ -176,8 +183,12 @@ def paf_score(pafs: torch.Tensor, xy: torch.Tensor, count: torch.Tensor,
     J, K = xy.shape[1], xy.shape[2]
     L = limb_pairs.shape[0]
     dev = pafs.device
-    _check(pafs, "pafs", torch.float32, (B, 2 * L, H, W), dev)
-    _check(xy, "xy", torch.float32, (B, J, K, 2), dev)
+    if not 0 < num_samples <= MAX_PAF_SAMPLES:
+        raise ValueError(f"paf_score_kernel takes 1 to {MAX_PAF_SAMPLES} "
+                         f"samples, got {num_samples}")
+    _check(pafs.permute(0, 2, 3, 1), "pafs (as [B, H, W, 2L])",
+           torch.float32, (B, H, W, 2 * L), dev, align=8)
+    _check(xy, "xy", torch.float32, (B, J, K, 2), dev, align=8)
     _check(count, "count", torch.int32, (B, J), dev)
     _check(limb_pairs, "limb_pairs", torch.int32, (L, 2), dev)
     lib = _load()
@@ -197,34 +208,71 @@ def paf_score(pafs: torch.Tensor, xy: torch.Tensor, count: torch.Tensor,
     return out
 
 
-def associate_limb(scores_all: torch.Tensor,
-                   dst_slot_valid: torch.Tensor) -> torch.Tensor:
-    """``associate_limb_kernel``: one limb's greedy for every image.
+def associate(xy: torch.Tensor, score: torch.Tensor, count: torch.Tensor,
+              table: torch.Tensor, root_depth_map: torch.Tensor,
+              steps: torch.Tensor, wave_starts: torch.Tensor,
+              bone: torch.Tensor, *, root_idx: int, max_wave: int,
+              inv_ds_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``associate_kernel``: the whole association of a batch, one launch.
 
-    scores_all [B, K, K] f32 (rows are persons in greedy order);
-    dst_slot_valid [B, K] bool; K <= 128. Returns [B, K] int32, -1 = none.
+    xy [B, J, K, 2] f32 (coordinate stride 1) and score [B, J, K] f32, any
+    other strides; count [B, J] int32; table [B, L, K, K] f32;
+    root_depth_map [B, H, W] f32; steps [L, 4] int32 (limb, src, dst, flip)
+    in wave order, wave_starts [n_waves + 1] int32 and bone [L] f32, with
+    max_wave the most limbs in a wave (``ops.association.kernel_plan``);
+    all on one CUDA device, count, table, the depth map and the plan
+    contiguous. K <= 128, max_wave <= 8. Returns (bodies [B, K, J, 4],
+    root_depth [B, K]), both f32.
     """
-    if scores_all.ndim != 3:
-        raise ValueError("scores_all must be [B, K, K]")
-    B, K = scores_all.shape[0], scores_all.shape[1]
+    if xy.ndim != 4 or table.ndim != 4 or root_depth_map.ndim != 3:
+        raise ValueError("xy must be [B, J, K, 2], table [B, L, K, K] and "
+                         "root_depth_map [B, H, W]")
+    B, J, K = xy.shape[0], xy.shape[1], xy.shape[2]
+    L = table.shape[1]
+    H, W = root_depth_map.shape[1], root_depth_map.shape[2]
     if K > MAX_ASSOC_PEAKS:
-        raise ValueError(f"associate_limb_kernel takes K <= "
-                         f"{MAX_ASSOC_PEAKS}, got {K}")
-    dev = scores_all.device
-    _check(scores_all, "scores_all", torch.float32, (B, K, K), dev)
-    _check(dst_slot_valid, "dst_slot_valid", torch.bool, (B, K), dev)
+        raise ValueError(f"associate_kernel takes K <= {MAX_ASSOC_PEAKS}, "
+                         f"got {K}")
+    if not 0 <= root_idx < J:
+        raise ValueError(f"root_idx {root_idx} out of [0, {J})")
+    if not 0 < max_wave <= MAX_WAVE_LIMBS:
+        raise ValueError(f"associate_kernel takes waves of 1 to "
+                         f"{MAX_WAVE_LIMBS} limbs, got {max_wave}")
+    dev = xy.device
+    if xy.device.type != "cuda" or score.device != dev:
+        raise ValueError(f"xy and score: expected CUDA tensors on one "
+                         f"device, got {xy.device} and {score.device}")
+    for name, t, shape in (("xy", xy, (B, J, K, 2)),
+                           ("score", score, (B, J, K))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: expected float32 {shape}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if xy.stride(3) != 1:
+        raise ValueError("xy: the coordinate axis must have stride 1")
+    _check(count, "count", torch.int32, (B, J), dev)
+    _check(table, "table", torch.float32, (B, L, K, K), dev)
+    _check(root_depth_map, "root_depth_map", torch.float32, (B, H, W), dev)
+    _check(steps, "steps", torch.int32, (L, 4), dev)
+    _check(wave_starts, "wave_starts", torch.int32,
+           (wave_starts.shape[0],), dev)
+    _check(bone, "bone", torch.float32, (L,), dev)
     lib = _load()
-    assign = torch.empty((B, K), dtype=torch.int32, device=dev)
-    if assign.numel() == 0:
-        return assign
+    bodies = torch.empty((B, K, J, 4), dtype=torch.float32, device=dev)
+    root_depth = torch.empty((B, K), dtype=torch.float32, device=dev)
+    if bodies.numel() == 0:
+        return bodies, root_depth
     with torch.cuda.device(dev):
-        err = lib.associate_limb_launch(
-            scores_all.data_ptr(), dst_slot_valid.data_ptr(),
-            assign.data_ptr(), B, K,
+        err = lib.associate_launch(
+            xy.data_ptr(), *xy.stride()[:3], score.data_ptr(),
+            *score.stride(), count.data_ptr(), table.data_ptr(),
+            root_depth_map.data_ptr(), steps.data_ptr(),
+            wave_starts.data_ptr(), bone.data_ptr(), bodies.data_ptr(),
+            root_depth.data_ptr(), B, J, K, L, H, W, root_idx,
+            wave_starts.shape[0] - 1, max_wave, inv_ds_scale,
             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "associate_limb_kernel")
-    LAUNCHES["associate_limb"] += 1
-    return assign
+    _raise_on(err, "associate_kernel")
+    LAUNCHES["associate"] += 1
+    return bodies, root_depth
 
 
 def fused_stem(x: torch.Tensor, packed: torch.Tensor,

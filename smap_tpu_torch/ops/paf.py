@@ -10,9 +10,11 @@ the segment's unit vector. The score is the mean of the samples above
 ``sqrt(H * W) / 150``; else -1. Coincident peaks and invalid slots score -1.
 
 On a CUDA tensor the whole table is one launch of the hand-written kernel
-``paf_score_kernel`` (``smap_tpu_torch/csrc/paf_score.cu``); on a CPU
-tensor, and with ``plain=True`` on any device, it is
-:func:`paf_scores_plain`, which gathers the samples directly.
+``paf_score_kernel`` (``smap_tpu_torch/csrc/paf_score.cu``), which takes
+the maps in channels-last memory, the layout the decode slices from the
+network's NHWC output, and raises on any other; on a CPU tensor, and with
+``plain=True`` on any device, it is :func:`paf_scores_plain`, which
+gathers the samples directly from maps of any layout.
 """
 
 from __future__ import annotations
@@ -93,7 +95,7 @@ def paf_scores(pafs: torch.Tensor, peaks: Peaks, limb_pairs: torch.Tensor, *,
 
     Args:
       pafs: [B, 2L, H, W] float32 PAF field (x then y channel per limb,
-        already divided by 127).
+        already divided by 127); on CUDA in channels-last memory.
       peaks: Peaks with xy [B, J, K, 2], count [B, J].
       limb_pairs: [L, 2] (src joint, dst joint).
       plain: run the plain PyTorch version whatever the device (to hold

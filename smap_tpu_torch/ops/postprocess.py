@@ -2,7 +2,7 @@
 (counterpart of ``smap_tpu/ops/postprocess.py``).
 
   normalize maps -> peak NMS -> PAF score table (kernel A on CUDA)
-  -> depth-aware association (kernel B on CUDA, 14 launches)
+  -> depth-aware association (kernel B on CUDA, one launch)
   -> limb delta-Z readout -> depth chaining -> absolute root depth
   -> un-letterbox -> back-projection.
 
@@ -74,7 +74,8 @@ def postprocess_batch(outputs_2d: torch.Tensor, outputs_3d: torch.Tensor,
     maps = outputs_2d.float().permute(0, 3, 1, 2)              # [B, 43, H, W]
     # Label encoding: heatmaps peak at 255, PAF unit vectors scaled by 127.
     kpt = maps[:, :NUM_JOINTS] / 255.0
-    paf = (maps[:, NUM_JOINTS:] / 127.0).contiguous()
+    # [B, 28, H, W] in channels-last memory, as kernel A reads it.
+    paf = maps[:, NUM_JOINTS:] / 127.0
     rd_map = outputs_rd[..., 0].float()                        # [B, H, W]
     paf_z = outputs_3d.float().permute(0, 3, 1, 2)             # [B, 14, H, W]
 

@@ -16,7 +16,7 @@ pytestmark = pytest.mark.cuda
 
 # As chip_smoke.py: kernel A sums the passing samples in another order than
 # torch.sum (a few ulps of a mean of <= 25 samples); everything else in
-# both kernels must be equal.
+# both kernels must be equal, kernel B's output to the bit.
 PAF_SCORE_ATOL = 1e-5
 
 
@@ -38,15 +38,25 @@ def _peaks(gen, B, J, K, h, w, dev):
     return Peaks(xy.to(dev), score.to(dev), count.to(dev))
 
 
+@pytest.mark.parametrize("layout", ["dense", "decode_slice"])
 @pytest.mark.parametrize("B,K,h,w", [(1, 5, 16, 24), (4, 40, 128, 208),
                                      (2, 127, 64, 96)])
-def test_paf_score_kernel_matches_plain(dev, B, K, h, w):
+def test_paf_score_kernel_matches_plain(dev, B, K, h, w, layout):
+    """Channels-last maps: a dense [B, 28, H, W] tensor in that memory
+    format, and the decode's own, a slice of the NHWC output divided by
+    127 (channels-last, 28 channels apart)."""
     from smap_tpu_torch.config import PAF_VECTOR
     from smap_tpu_torch.ops import kernels
     from smap_tpu_torch.ops.paf import paf_scores
 
     gen = torch.Generator().manual_seed(K)
-    pafs = (torch.rand((B, 28, h, w), generator=gen) * 2 - 1).to(dev)
+    if layout == "dense":
+        pafs = (torch.rand((B, 28, h, w), generator=gen) * 2 - 1).to(
+            dev).contiguous(memory_format=torch.channels_last)
+    else:
+        nhwc = (torch.rand((B, h, w, 43), generator=gen) * 254 - 127).to(dev)
+        pafs = nhwc.permute(0, 3, 1, 2)[:, 15:] / 127.0
+        assert pafs.stride() == (28 * h * w, 1, 28 * w, 28)
     peaks = _peaks(gen, B, 15, K, h, w, dev)
     pairs = torch.tensor(PAF_VECTOR, dtype=torch.int32, device=dev)
     kernels.reset_launch_counts()
@@ -60,41 +70,51 @@ def test_paf_score_kernel_matches_plain(dev, B, K, h, w):
     assert float((got - want).abs().max()) <= PAF_SCORE_ATOL
 
 
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
 @pytest.mark.parametrize("K", [1, 8, 40, 127, 128])
-def test_associate_limb_kernel_matches_plain(dev, K):
+def test_associate_kernel_matches_plain(dev, K):
+    """The fused association, one launch, bit-equal to the plain loop."""
     from smap_tpu_torch.ops import kernels
-    from smap_tpu_torch.ops.association import (associate_limb,
-                                                associate_limb_plain)
+    from smap_tpu_torch.ops.association import associate
+
+    from chip_smoke import association_inputs
 
     gen = torch.Generator().manual_seed(K)
-    B = 16
-    scores = torch.round((torch.rand((B, K, K), generator=gen) * 2 - 1)
-                         * 8) / 8
-    scores[torch.rand((B, K), generator=gen) < 0.3] = float("-inf")
-    scores[0] = float("-inf")
-    scores[1] = 0.25
-    scores[2, 0, K // 2] = float("nan")
-    valid = (torch.arange(K)[None, :]
-             < torch.randint(0, K + 1, (B, 1), generator=gen))
-    scores, valid = scores.to(dev), valid.to(dev)
+    peaks, table, rdm = association_inputs(gen, 16, K, dev, 32, 48)
     kernels.reset_launch_counts()
-    got = associate_limb(scores, valid)
-    assert kernels.LAUNCHES["associate_limb"] == 1
-    want = associate_limb_plain(scores, valid)
+    got = associate(peaks, table, rdm)
+    assert kernels.LAUNCHES["associate"] == 1
+    want = associate(peaks, table, rdm, plain=True)
     torch.cuda.synchronize()
-    assert torch.equal(got, want)
+    assert torch.equal(_bits(got.joints), _bits(want.joints))
+    assert torch.equal(_bits(got.root_depth), _bits(want.root_depth))
+    assert torch.equal(got.count, want.count)
 
 
 def test_kernels_reject_what_they_do_not_take(dev):
-    from smap_tpu_torch.ops import kernels
+    from chip_smoke import association_inputs
 
+    from smap_tpu_torch.ops import kernels
+    from smap_tpu_torch.ops.association import kernel_plan
+
+    gen = torch.Generator().manual_seed(0)
+    plan = kernel_plan(2, 1.2, 4.0, dev)
+    for K, where in ((129, dev), (8, torch.device("cpu"))):
+        peaks, table, rdm = association_inputs(gen, 5, K, where, 32, 48)
+        p = plan if where == dev else kernel_plan(2, 1.2, 4.0, where)
+        with pytest.raises(ValueError):
+            kernels.associate(*peaks, table, rdm, p.steps, p.wave_starts,
+                              p.bone, root_idx=2, max_wave=p.max_wave,
+                              inv_ds_scale=p.inv_ds_scale)
+    pafs = torch.zeros((1, 28, 16, 24), device=dev)   # NCHW: not taken
+    peaks = _peaks(gen, 1, 15, 5, 16, 24, dev)
     with pytest.raises(ValueError):
-        kernels.associate_limb(torch.zeros((1, 129, 129), device=dev),
-                               torch.ones((1, 129), dtype=torch.bool,
-                                          device=dev))
-    with pytest.raises(ValueError):
-        kernels.associate_limb(torch.zeros((1, 4, 4)),
-                               torch.ones((1, 4), dtype=torch.bool))
+        kernels.paf_score(pafs, peaks.xy, peaks.count, torch.zeros(
+            (14, 2), dtype=torch.int32, device=dev), inter_threshold=0.05,
+            inter_min_above=0.95, default_threshold=0.1, num_samples=25)
 
 
 # Kernel C vs its plain version: the conv sums 147 exact products in

@@ -97,3 +97,57 @@ def test_paf_scores_batch_rows_are_independent():
         one = paf_scores(pafs[b:b + 1], type(peaks)(*(p[b:b + 1]
                                                       for p in peaks)), pairs)
         assert torch.equal(both[b], one[0])
+
+
+@pytest.mark.parametrize("B", [1, 3])
+def test_paf_scores_plain_channels_last_equals_contiguous(B):
+    """The decode hands kernel A channels-last maps; the plain version
+    gives the same bits on them as on NCHW-contiguous maps."""
+    from smap_tpu_torch.config import PAF_VECTOR
+    from smap_tpu_torch.ops.nms import extract_peaks
+    from smap_tpu_torch.ops.paf import paf_scores_plain
+
+    rng = np.random.RandomState(7 + B)
+    hm = torch.from_numpy(rng.rand(B, 15, 16, 24).astype(np.float32))
+    nhwc = torch.from_numpy(
+        (rng.rand(B, 16, 24, 28).astype(np.float32) - 0.5) * 254)
+    cl = nhwc.permute(0, 3, 1, 2) / 127.0
+    assert cl.is_contiguous(memory_format=torch.channels_last)
+    assert not cl.is_contiguous()
+    peaks = extract_peaks(hm, max_peaks=12)
+    pairs = torch.tensor(PAF_VECTOR, dtype=torch.int32)
+    got = paf_scores_plain(cl, peaks, pairs)
+    want = paf_scores_plain(cl.contiguous(), peaks, pairs)
+    assert torch.equal(got, want)
+    assert (want > 0.1).any() and (want == -1).any()
+
+
+def test_decode_passes_channels_last_pafs(monkeypatch):
+    """postprocess_batch divides the NHWC maps' PAF channels by 127 with no
+    copy to NCHW: the tensor kernel A gets has strides (28HW, 1, 28W, 28)."""
+    from smap_tpu_torch.camera import default_scale_dict
+    from smap_tpu_torch.ops import paf as paf_module
+    from smap_tpu_torch.ops import postprocess
+
+    seen = []
+
+    def spy(pafs, *args, **kw):
+        seen.append(pafs)
+        return paf_module.paf_scores(pafs, *args, **kw)
+
+    monkeypatch.setattr(postprocess, "paf_scores", spy)
+    rng = np.random.RandomState(0)
+    B, H, W = 2, 16, 24
+    out2d = torch.from_numpy(rng.rand(B, H, W, 43).astype(np.float32) * 255)
+    out3d = torch.zeros((B, H, W, 14))
+    rd = torch.ones((B, H, W, 1))
+    sd = default_scale_dict(1920, 1080, 96, 64)
+    scale = postprocess.ScaleInfo(*(torch.full((B,), float(v)) for v in (
+        sd["scale"], sd["img_width"], sd["img_height"], sd["f_x"],
+        sd["f_y"], sd["cx"], sd["cy"])))
+    postprocess.postprocess_batch(out2d, out3d, rd, scale, net_w=96.0,
+                                  net_h=64.0)
+    (pafs,) = seen
+    assert tuple(pafs.shape) == (B, 28, H, W)
+    assert pafs.stride() == (28 * H * W, 1, 28 * W, 28)
+    assert torch.equal(pafs, out2d[..., 15:].permute(0, 3, 1, 2) / 127.0)
