@@ -89,6 +89,12 @@ STREAM_BATCHES = 4
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
+INT8_OPS = 1979e12
+# The int8 forwards' distance to a float32 forward: tests/test_quantize.py's
+# gates (rms_rel, per map) and correlation floor.
+INT8_REL = (0.08, 0.08, 0.25)
+INT8_CORR = 0.98
+LADDER = (8, 16, 40)
 
 
 def log(msg: str) -> None:
@@ -127,13 +133,13 @@ def cuda_ms(fn, iters: int, warmup: int = 2, ahead: bool = False) -> float:
     return float(np.median(runs))
 
 
-def in_turns(fns, iters: int):
+def in_turns(fns, iters: int, ahead: bool = False):
     """Mean device ms of each of ``fns`` (name -> callable), timed in turns
-    A B .. B A on the same card."""
+    A B .. B A on the same card (``ahead``: as ``cuda_ms``)."""
     names = list(fns)
     got = {name: [] for name in names}
     for name in names + names[::-1]:
-        got[name].append(cuda_ms(fns[name], iters))
+        got[name].append(cuda_ms(fns[name], iters, ahead=ahead))
     return {name: float(np.mean(v)) for name, v in got.items()}
 
 
@@ -485,7 +491,7 @@ def phase_serving(dev, card: str, batches):
     n_batches = TIMED_BATCHES + n_stream
     if n_stream != STREAM_BATCHES or launches != {
             "paf_score": n_batches, "associate": n_batches,
-            "fused_stem": 0, "fused_bottleneck": 0}:
+            "fused_stem": 0, "fused_bottleneck": 0, "int8_conv": 0}:
         raise AssertionError(f"serving: launches {launches} over "
                              f"{n_batches} batches, want 1 of A and 1 of B "
                              f"per batch")
@@ -578,7 +584,7 @@ def cudnn_bottleneck(args, dev):
     def oihw(w):                       # [in, out] -> [out, in, 1, 1]
         return w.t()[:, :, None, None]
 
-    block = Bottleneck(w1.shape[0], w1.shape[1], 1, bool(proj), folded=True)
+    block = Bottleneck(w1.shape[0], w1.shape[1], 1, bool(proj), quant="folded")
     convs = [(block.conv_bn_relu1, oihw(w1), b1),
              (block.conv_bn_relu2, w2.permute(3, 2, 0, 1), b2),
              (block.conv_bn_relu3, oihw(w3), b3)]
@@ -604,7 +610,7 @@ def cudnn_stem(x, k, b, dev):
     from smap_tpu_torch.models.layers import to_compute_dtype
     from smap_tpu_torch.models.smap import ResNetTop
 
-    top = ResNetTop(64, folded=True)
+    top = ResNetTop(64, quant="folded")
     with torch.no_grad():
         top.conv.conv.weight.copy_(k.float())
         top.conv.conv.bias.copy_(b)
@@ -794,7 +800,7 @@ def phase_folded_serving(dev, card: str, batches):
     launches = dict(kernels.LAUNCHES)
     n = len(batches)
     want = {"paf_score": n, "associate": n, "fused_stem": n,
-            "fused_bottleneck": 9 * n}
+            "fused_bottleneck": 9 * n, "int8_conv": 0}
     if launches != want:
         raise AssertionError(f"folded: launches {launches} over {n} "
                              f"batches, want {want}")
@@ -848,6 +854,353 @@ def phase_folded_serving(dev, card: str, batches):
     return launches
 
 
+def int8_conv_cases(engine, images):
+    """One forward of an int8 engine with every conv's input recorded:
+    ([(module, input, convs of the forward with this shape)] for each
+    distinct conv shape, E launches the forward made)."""
+    from smap_tpu_torch.models.layers import Int8Conv
+    from smap_tpu_torch.ops import kernels
+
+    cases, seen = {}, []
+
+    def hook(m, args):
+        x = args[0]
+        key = (tuple(x.shape), tuple(m.kernel_q.shape), m.stride, m.padding,
+               m.relu)
+        seen.append(key)
+        if key not in cases:
+            cases[key] = (m, x)
+
+    handles = [m.register_forward_pre_hook(hook)
+               for m in engine.model.modules() if isinstance(m, Int8Conv)]
+    kernels.reset_launch_counts()
+    try:
+        engine.forward(images)
+        torch.cuda.synchronize()
+    finally:
+        for h in handles:
+            h.remove()
+    launches = kernels.LAUNCHES["int8_conv"]
+    kernels.reset_launch_counts()
+    return [(m, x, seen.count(key)) for key, (m, x) in cases.items()], \
+        launches
+
+
+def im2col_int8(x, kh, kw, stride, pad, k):
+    """The [M, k] int8 matrix of an NHWC int8 image whose product with
+    kernel E's weight rows is the convolution (columns past kh kw Cin
+    zero): the library yardstick's input."""
+    import torch.nn.functional as F
+
+    B, H, W, C = x.shape
+    ho = (H + 2 * pad - kh) // stride + 1
+    wo = (W + 2 * pad - kw) // stride + 1
+    xp = F.pad(x, (0, 0, pad, pad, pad, pad)) if pad else x
+    sb, sh, sw, _ = xp.stride()
+    a = xp.as_strided((B, ho, wo, kh, kw, C),
+                      (sb, stride * sh, stride * sw, sh, sw, 1))
+    a = a.reshape(B * ho * wo, kh * kw * C)
+    return F.pad(a, (0, k - a.shape[1])) if k > a.shape[1] else a
+
+
+def check_int8_case(m, x, label):
+    """Kernel E against its plain version on one conv's input and
+    weights (the act_scale of a static engine), bit for bit; and the
+    library yardstick's integer product against the exact one. Returns the
+    timing closures and the bound's (bytes, operations)."""
+    import torch.nn.functional as F
+
+    from smap_tpu_torch.ops import kernels
+    from smap_tpu_torch.ops.int8_conv import (CIN_ALIGN, int8_conv2d,
+                                              int8_conv2d_plain,
+                                              pack_int8_weights,
+                                              quantize_activation)
+
+    s_x = m.act_scale
+    xq = quantize_activation(x, s_x)
+    packed = pack_int8_weights(m.kernel_q)
+    args = (xq, m.kernel_q, m.kernel_scale, s_x, m.bias, m.stride,
+            m.padding, m.relu, m.out_dtype)
+    got = int8_conv2d(*args, packed=packed)
+    want = int8_conv2d_plain(*args)
+    cout, cin, kh, kw = m.kernel_q.shape
+    view = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    if not (got.shape == want.shape and torch.equal(
+            got.contiguous().view(view), want.contiguous().view(view))):
+        raise AssertionError(f"int8_conv {label}: kernel E differs from its "
+                             f"plain version")
+    x_nhwc = xq.permute(0, 2, 3, 1)
+    if cin % CIN_ALIGN:
+        x_nhwc = F.pad(x_nhwc, (0, CIN_ALIGN - cin % CIN_ALIGN))
+    x_nhwc = x_nhwc.contiguous()
+    rows = -(-cout // 8) * 8                        # cuBLASLt: N % 8 == 0
+    b = F.pad(packed, (0, 0, 0, rows - cout)).t()   # [K, N], column-major
+    kpad = packed.shape[1]
+
+    def library():
+        return torch._int_mm(im2col_int8(x_nhwc, kh, kw, m.stride, m.padding,
+                                         kpad), b)
+
+    exact = F.conv2d(xq.double(), m.kernel_q.double(), None, m.stride,
+                     m.padding).round().to(torch.int32)
+    lib = library()[:, :cout].reshape(exact.shape[0], exact.shape[2],
+                                      exact.shape[3], cout)
+    if not torch.equal(lib, exact.permute(0, 2, 3, 1)):
+        raise AssertionError(f"int8_conv {label}: the library yardstick "
+                             f"computes another product")
+    w16 = (m.kernel_q.float() * m.kernel_scale[:, None, None, None]).to(
+        torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    b16 = m.bias.to(torch.bfloat16)[:, None, None]
+    x16 = x.to(torch.bfloat16)
+    fns = {
+        "ms": lambda: kernels.int8_conv(
+            x_nhwc, packed, m.kernel_scale, s_x, m.bias, kh=kh, kw=kw,
+            stride=m.stride, padding=m.padding, relu=m.relu,
+            out_dtype=m.out_dtype),
+        "library_ms": library,
+        "cudnn_bf16_ms": lambda: F.conv2d(x16, w16, None, m.stride,
+                                          m.padding).add_(b16)}
+    n_out = got.numel()
+    nbytes = (xq.numel() + cout * kh * kw * cin + n_out * got.element_size()
+              + 2 * cout * 4)
+    ops = 2.0 * n_out * kh * kw * cin
+    plain = (lambda: int8_conv2d_plain(*args))
+    return fns, plain, nbytes, ops
+
+
+def int8_ragged_cases(gen, dev):
+    """Kernel E bit-equal to its plain version off the forward's shapes:
+    odd H and W, Cin 3 and 8, Cout 1 and 43, stride 2, float32 out."""
+    from smap_tpu_torch.ops.int8_conv import int8_conv2d, int8_conv2d_plain
+
+    shapes = [(3, 15, 11, 3, 14, 7, 2, 3, True, torch.float32),
+              (1, 13, 17, 8, 43, 3, 1, 1, False, torch.float32),
+              (2, 9, 7, 64, 1, 1, 2, 0, False, torch.bfloat16),
+              (2, 31, 45, 256, 1, 3, 2, 1, True, torch.bfloat16),
+              (1, 5, 5, 2048, 43, 3, 1, 1, False, torch.bfloat16)]
+    for B, H, W, cin, cout, k, stride, pad, relu, dtype in shapes:
+        xq = torch.randint(-127, 128, (B, cin, H, W), generator=gen,
+                           dtype=torch.int8).to(dev).contiguous(
+            memory_format=torch.channels_last)
+        wq = torch.randint(-127, 128, (cout, cin, k, k), generator=gen,
+                           dtype=torch.int8).to(dev)
+        args = (xq, wq, (torch.rand(cout, generator=gen) * 1e-3).to(dev),
+                torch.tensor(0.0371, device=dev),
+                torch.randn(cout, generator=gen).to(dev), stride, pad, relu,
+                dtype)
+        got, want = int8_conv2d(*args), int8_conv2d_plain(*args)
+        view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+        if not torch.equal(got.contiguous().view(view),
+                           want.contiguous().view(view)):
+            raise AssertionError(f"int8_conv ragged [{B}, {H}, {W}, {cin}] "
+                                 f"-> {cout} k{k}/{stride}: differs")
+    return len(shapes)
+
+
+def corr(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(torch.corrcoef(torch.stack([a.flatten().double(),
+                                             b.flatten().double()]))[0, 1])
+
+
+def phase_int8_serving(dev, card: str, batches):
+    """int8 serving: the int8-static engine calibrated on the first serving
+    batch (the main path: run_batch over the frames, counted), kernel E
+    against its plain version at every conv shape of its forward and at
+    ragged ones, each shape timed in turns with cuBLASLt's int8 product
+    (``library_ms``) and the cuDNN bf16 conv + bias; the forwards in turns
+    with the int8-dynamic, folded-fused and unfolded engines; the maps'
+    distance to a float32 forward; the capacity ladder against the
+    full-capacity decode. Returns (E's summary row, launches)."""
+    import dataclasses
+
+    from smap_tpu_torch import golden
+    from smap_tpu_torch.config import Config
+    from smap_tpu_torch.inference import SMAPInference
+    from smap_tpu_torch.ops import kernels
+    from smap_tpu_torch.runtime import no_tf32
+
+    cfg = Config()
+    sd = perturbed_state_dict(cfg.model, seed=0)
+    t0 = time.perf_counter()
+    static = SMAPInference(sd, cfg, device=dev, quantized="static",
+                           calibration_batches=batches[0][0])
+    log(f"int8: static engine up, calibrated on one batch of {BATCH}, in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # The main path: int8-static run_batch calls, counted.
+    for frames, scales in batches[:2]:                      # warm-up
+        static.results_to_pairs(static.run_batch(frames, scales),
+                                [""] * BATCH)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    people = 0
+    for frames, scales in batches:
+        pairs = static.results_to_pairs(static.run_batch(frames, scales),
+                                        [""] * BATCH)
+        people += sum(len(p["pred_3d"]) for p in pairs)
+    t_batch = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    n = len(batches)
+    per_forward = sum(k.endswith("act_scale")
+                      for k in static.model.state_dict())
+    want = {"paf_score": n, "associate": n, "fused_stem": 0,
+            "fused_bottleneck": 0, "int8_conv": per_forward * n}
+    if launches != want:
+        raise AssertionError(f"int8: launches {launches} over {n} batches, "
+                             f"want {want}")
+    log(f"int8: launches {launches} over {n} batches ({per_forward} E, 1 "
+        f"paf_score, 1 associate per batch)")
+    log(f"int8: int8-static run_batch e2e {n * BATCH / t_batch:.1f} img/s, "
+        f"{people} people decoded in {n} batches [{card}]")
+    stage = [static.run_batch_timed(*b)[1] for b in batches]
+    log("int8: int8-static run_batch_timed per batch (mean of "
+        f"{len(stage)}): " + ", ".join(
+            f"{k} {np.mean([t[k] for t in stage]):.2f}" for k in stage[0])
+        + f" [{card}]")
+
+    # Kernel E at every conv shape of the forward, on the forward's own
+    # inputs and weights, then ragged shapes.
+    images = static.to_device(batches[0][0])
+    cases, e_forward = int8_conv_cases(static, images)
+    if e_forward != per_forward:
+        raise AssertionError(f"int8: {e_forward} E launches in a forward, "
+                             f"{per_forward} convs with a scale")
+    n_ragged = int8_ragged_cases(torch.Generator().manual_seed(7), dev)
+    log(f"int8: kernel E bit-equal to its plain version at the "
+        f"{len(cases)} conv shapes of the forward ({e_forward} convs) and "
+        f"{n_ragged} ragged shapes; the library yardstick's int32 product "
+        f"equal to the exact one")
+    keys = ("ms", "library_ms", "cudnn_bf16_ms", "plain_ms", "bound_ms")
+    total = dict.fromkeys(keys, 0.0)
+    shapes = []
+    for m, x, count in cases:
+        label = (f"{list(x.shape)} -> {m.kernel_q.shape[0]} "
+                 f"k{m.kernel_q.shape[2]}/{m.stride}")
+        fns, plain, nbytes, ops = check_int8_case(m, x, label)
+        t = in_turns(fns, 10, ahead=True)
+        t["plain_ms"] = cuda_ms(plain, 2)
+        t.update(bound(t["ms"], nbytes, ops, INT8_OPS))
+        for k in keys:
+            total[k] += count * t[k]
+        shapes.append(dict(shape=label, convs=count, **{
+            k: t[k] for k in keys + ("bound_by", "share")}))
+        log(f"int8: E {label} x{count}: {t['ms']:.4f} ms, cuBLASLt int8 "
+            f"{t['library_ms']:.4f}, cuDNN bf16 {t['cudnn_bf16_ms']:.4f}, "
+            f"plain {t['plain_ms']:.4f}; bound {t['bound_ms']:.4f} "
+            f"({t['bound_kind']}), share {t['share']:.3f} [{card}]")
+        del fns, plain
+    log(f"int8: E over one forward ({e_forward} convs): {total['ms']:.3f} "
+        f"ms, cuBLASLt int8 {total['library_ms']:.3f}, cuDNN bf16 "
+        f"{total['cudnn_bf16_ms']:.3f}, bound {total['bound_ms']:.3f}, "
+        f"share {total['bound_ms'] / total['ms']:.3f} [{card}]")
+    row = dict(
+        name="int8_conv_kernel", route="cuda",
+        source="smap_tpu_torch/csrc/int8_conv.cu",
+        replaces="none: the JAX package's int8 conv is XLA's, "
+                 "smap_tpu/models/layers.py:195",
+        max_abs_err=0.0, ms=total["ms"], plain_ms=total["plain_ms"],
+        bound_ms=total["bound_ms"],
+        bound_by=("bytes" if sum(s["bound_by"] == "bytes" for s in shapes)
+                  * 2 > len(shapes) else "operations"),
+        bound_kind="per shape", share=total["bound_ms"] / total["ms"],
+        library_ms=total["library_ms"],
+        cudnn_bf16_ms=total["cudnn_bf16_ms"], per="forward of 16 images",
+        shapes=shapes)
+    del cases
+
+    # Forwards in turns, and the distance to a float32 forward.
+    engines = {
+        "int8-static": static,
+        "int8-dynamic": SMAPInference(sd, cfg, device=dev, quantized=True),
+        "folded-fused": SMAPInference(sd, cfg, device=dev,
+                                      quantized="folded", fuse_stem=True,
+                                      fuse_bottleneck=True),
+        "unfolded": SMAPInference(sd, cfg, device=dev)}
+    for e in engines.values():
+        e.forward(images)
+    torch.cuda.synchronize()
+    fwd = {name: [] for name in engines}
+    for frames, _ in batches:
+        for name, e in engines.items():
+            t0 = time.perf_counter()
+            e.forward(e.to_device(frames))
+            torch.cuda.synchronize()
+            fwd[name].append((time.perf_counter() - t0) * 1e3)
+    log(f"int8: forward ms per batch of {BATCH} (mean of {len(batches)}, "
+        f"synchronized, in turns): " + ", ".join(
+            f"{name} {np.mean(v):.2f}" for name, v in fwd.items())
+        + f" [{card}]")
+    truth_engine = SMAPInference(sd, dataclasses.replace(
+        cfg, model=dataclasses.replace(cfg.model, compute_dtype="float32")),
+        device=dev)
+    with no_tf32():
+        truth = truth_engine.forward(images)
+    del truth_engine
+    maps = {name: e.forward(images) for name, e in engines.items()}
+    for i, name in enumerate(("2d", "rel-depth", "root-depth")):
+        errs = {k: rel_err(v[i], truth[i]) for k, v in maps.items()}
+        c = {k: corr(v[i], truth[i]) for k, v in maps.items()
+             if k.startswith("int8")}
+        for k in c:
+            if not (bool(torch.isfinite(maps[k][i]).all())
+                    and errs[k] < INT8_REL[i] and c[k] > INT8_CORR):
+                raise AssertionError(
+                    f"int8: {k} {name} map: rms_rel {errs[k]} (gate "
+                    f"{INT8_REL[i]}), corr {c[k]} (gate {INT8_CORR})")
+        log(f"int8: {name} map vs float32: rms_rel " + ", ".join(
+            f"{k} {v:.4g}" for k, v in errs.items()) + "; corr " + ", ".join(
+            f"{k} {v:.6f}" for k, v in c.items())
+            + f" (gates {INT8_REL[i]}, {INT8_CORR})")
+    del maps, engines
+
+    # The capacity ladder against the full-capacity decode: the serving
+    # frames (a crowd: every batch past the top rung), then the golden
+    # scenes' maps (a few people: the lowest rung).
+    ladder = SMAPInference(static.model.state_dict(), static.cfg,
+                           device=dev, adaptive_capacities=LADDER)
+    full = static.cfg.post.max_peaks
+
+    def same(got, want, label):
+        for i, k in enumerate(want.count.tolist()):
+            if int(got.count[i]) != k or not all(
+                    torch.equal(a[i, :k], b[i, :k])
+                    for a, b in zip(got[:3], want[:3])):
+                raise AssertionError(f"int8: ladder {label} image {i} "
+                                     f"differs from the full-capacity "
+                                     f"decode")
+
+    refs = []
+    for j, (frames, scales) in enumerate(batches):
+        images, info = ladder.place(frames, scales)
+        refs.append(ladder.postprocess(ladder.forward(images), info,
+                                       capacity=full))
+        same(ladder.run_batch(frames, scales), refs[-1], f"batch {j}")
+    for j, res in enumerate(ladder.run_stream(batches)):
+        same(res, refs[j], f"stream batch {j}")
+    scene = list(golden.scene_inputs())
+    info = ladder.scale_info([{"scale": min(832 / 1920, 512 / 1080),
+                               "img_width": 1920.0, "img_height": 1080.0,
+                               "f_x": K[0, 0], "f_y": K[1, 1], "cx": K[0, 2],
+                               "cy": K[1, 2]} for _, _, K, _, _, _ in scene])
+    scene_maps = tuple(torch.from_numpy(np.stack(m)).to(dev) for m in zip(
+        *[(o, z, r) for _, _, _, o, z, r in scene]))
+    for j in range(3):
+        item = ladder._ladder_dispatch(scene_maps, info)
+        same(ladder._ladder_resolve(*item),
+             ladder.postprocess(scene_maps, info, capacity=full),
+             f"scenes {j}")
+    if ladder._spec_cap != LADDER[0]:
+        raise AssertionError(f"int8: ladder rung {ladder._spec_cap} on the "
+                             f"golden scenes, want {LADDER[0]}")
+    log(f"int8: ladder {LADDER} equal to the full-capacity ({full}) decode "
+        f"on {len(batches)} crowd batches (run_batch and run_stream) and on "
+        f"the golden scenes at rung {ladder._spec_cap}; counts "
+        f"{[int(c) for c in refs[0].count[:4]]}... / scenes "
+        f"{ladder.postprocess(scene_maps, info).count.tolist()}")
+    return row, launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script needs "
@@ -886,6 +1239,10 @@ def main() -> int:
         row["launches"] = launches[key]
         row["launches_per_forward"] = launches[key] / len(batches)
     rows.update(fused_rows)
+    int8_row, launches = phase_int8_serving(dev, card, batches)
+    int8_row["launches"] = launches["int8_conv"]
+    int8_row["launches_per_forward"] = launches["int8_conv"] / len(batches)
+    rows["int8_conv"] = int8_row
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_per_forward", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "bound_kind", "share", "library_ms")

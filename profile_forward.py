@@ -4,14 +4,15 @@ on a CUDA card.
 
     python3 profile_forward.py          # from the repository root, one card
 
-Builds the three bf16 engines that ``chip_smoke.py`` phase 6 compares
+Builds the bf16 engines that ``chip_smoke.py`` phases 6 and 7 compare
 (unfolded, BN-folded with cuDNN convolutions, BN-folded with kernels C and
-D) at full width (``ModelConfig()``, 512x832, the same seeded weights and
-BatchNorm statistics), warms each up, and runs ``torch.profiler`` over 3
-forwards of the same batch of 16 letterboxed frames per engine. Prints, per
-engine, the device time per forward summed over the card's kernels, by
-kind (kernel C, kernel D, convolutions, elementwise passes, ...) and the
-ten largest kernels by name.
+D, and int8 through kernel E: static, calibrated on the batch, and
+dynamic) at full width (``ModelConfig()``, 512x832, the same seeded weights
+and BatchNorm statistics), warms each up, and runs ``torch.profiler`` over
+3 forwards of the same batch of 16 letterboxed frames per engine. Prints,
+per engine, the device time per forward summed over the card's kernels, by
+kind (kernels C, D and E, convolutions, reductions, elementwise passes,
+...) and the ten largest kernels by name.
 
 Then the decode: ``postprocess`` (peaks, kernel A, kernel B, depth, back-
 projection) of the unfolded engine's maps of that batch of 16, the frames
@@ -37,6 +38,7 @@ import torch
 FORWARDS = 3
 DECODES = 3
 KINDS = (   # first match wins
+    ("kernel E (int8_conv_kernel)", r"int8_conv_kernel"),
     ("kernel D (fused_bottleneck_kernel)", r"fused_bottleneck_kernel"),
     ("kernel C (fused_stem_kernel)", r"fused_stem_kernel"),
     ("BatchNorm", r"batch_norm"),
@@ -44,8 +46,9 @@ KINDS = (   # first match wins
     ("max-pool", r"max_pool"),
     ("convolutions (cuDNN / cuBLAS)",
      r"conv|xmma|cudnn|gemm|cutlass|nvjet|sm90_|sm80_|implicit"),
-    ("elementwise (bias add, ReLU, residual add, casts, copies)",
-     r"elementwise|vectorized|copy|fill|reduce"),
+    ("reductions (the dynamic scales' abs-max)", r"reduce"),
+    ("elementwise (bias add, ReLU, residual add, int8 quantize, casts, "
+     "copies)", r"elementwise|vectorized|copy|fill"),
 )
 
 
@@ -200,7 +203,12 @@ def main() -> int:
                                         quantized="folded"),
         "folded-fused": SMAPInference(sd, cfg, device="cuda",
                                       quantized="folded", fuse_stem=True,
-                                      fuse_bottleneck=True)}
+                                      fuse_bottleneck=True),
+        "int8-static": SMAPInference(sd, cfg, device="cuda",
+                                     quantized="static",
+                                     calibration_batches=frames),
+        "int8-dynamic": SMAPInference(sd, cfg, device="cuda",
+                                      quantized=True)}
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for name, engine in engines.items():

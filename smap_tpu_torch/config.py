@@ -53,6 +53,9 @@ OUTPUT_SHAPE: Tuple[int, int] = (INPUT_SHAPE[0] // STRIDE,
 PIXEL_MEANS_BGR: Tuple[float, float, float] = (0.406, 0.456, 0.485)
 PIXEL_STDS_BGR: Tuple[float, float, float] = (0.225, 0.224, 0.229)
 
+# The values of ModelConfig.quantized.
+QUANT_MODES: Tuple[Any, ...] = (False, True, "static", "folded")
+
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -67,18 +70,19 @@ class ModelConfig:
     # "bfloat16" or "float32": the dtype the forward computes in. Outputs
     # are float32 either way.
     compute_dtype: str = "bfloat16"
-    # False, or "folded": BatchNorm folded into each conv's kernel and bias
+    # False; "folded": BatchNorm folded into each conv's kernel and bias
     # (models.quantize.fold_bn_state_dict), the serving mode of the fused
-    # stem and bottleneck kernels. The int8 modes of the JAX package are
-    # not ported yet.
+    # stem and bottleneck kernels; True: int8 convolutions with per-output-
+    # channel int8 weights (BatchNorm folded, models.quantize.
+    # quantize_state_dict) and a per-tensor activation scale taken from
+    # each input; "static": the same with frozen activation scales
+    # (models.quantize.calibrate_activation_scales).
     quantized: Any = False
 
     def __post_init__(self):
-        if self.quantized not in (False, "folded"):
-            raise NotImplementedError(
-                f"ModelConfig.quantized={self.quantized!r}: the port serves "
-                f"False and \"folded\"; int8 serving is still to port "
-                f"(ROADMAP.md, queue 1)")
+        if self.quantized not in QUANT_MODES:
+            raise ValueError(f"ModelConfig.quantized={self.quantized!r}: "
+                             f"expected one of {QUANT_MODES}")
 
     @property
     def kpt_paf_channels(self) -> int:

@@ -13,19 +13,24 @@ import dataclasses
 import glob
 import json
 import os
+import time
 from typing import (Any, Dict, Iterable, Iterator, List, Mapping, Optional,
                     Sequence, Tuple, Union)
 
 import numpy as np
 import torch
 
-from smap_tpu_torch.config import (FLIP_ORDER, PAF_FLIP_CHANNEL, ROOT_IDX,
-                                   Config)
+from smap_tpu_torch.config import (FLIP_ORDER, NUM_JOINTS, PAF_FLIP_CHANNEL,
+                                   ROOT_IDX, Config)
 from smap_tpu_torch.data.preprocess import prepare_images
 from smap_tpu_torch.models.layers import to_compute_dtype
-from smap_tpu_torch.models.quantize import fold_bn_state_dict
+from smap_tpu_torch.models.quantize import (calibrate_activation_scales,
+                                            check_static_scales,
+                                            fold_bn_state_dict,
+                                            quantize_state_dict)
 from smap_tpu_torch.models.refinenet import RefineNet
 from smap_tpu_torch.models.smap import SMAP
+from smap_tpu_torch.ops.nms import _local_max_mask
 from smap_tpu_torch.ops.postprocess import (PoseResults, ScaleInfo,
                                             flip_tta_merge, postprocess_batch)
 from smap_tpu_torch.ops.refine import apply_refinement, build_refine_input
@@ -33,6 +38,13 @@ from smap_tpu_torch.runtime import compute_dtype, get_device
 
 Maps = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
 Scales = Union[ScaleInfo, Sequence[Mapping[str, float]]]
+
+
+def _batch_list(batches) -> list:
+    """One batch (an array or a tensor) or an iterable of them -> a list."""
+    if isinstance(batches, (np.ndarray, torch.Tensor)):
+        return [batches]
+    return list(batches)
 
 
 class SMAPInference:
@@ -48,26 +60,70 @@ class SMAPInference:
       do_flip: horizontal-flip test-time augmentation, as one 2B forward.
       device: where everything runs: the card unless ``"cpu"`` is asked
         for; ``"cuda"`` raises on a host without a card.
-      quantized: ``"folded"`` serves with BatchNorm folded into the conv
-        weights, folded once here (``models.quantize.fold_bn_state_dict``)
-        unless ``cfg.model.quantized`` is already ``"folded"``, in which
-        case ``state_dict`` is taken as folded. The int8 modes of the JAX
-        package are not ported (``ModelConfig`` raises on them).
+      quantized: the serving weight transform, done once here unless
+        ``cfg.model.quantized`` is already set (then ``state_dict`` is
+        taken as transformed, and for ``"static"`` as calibrated).
+        ``"folded"``: BatchNorm folded into the conv weights
+        (``models.quantize.fold_bn_state_dict``). True: int8 convolutions
+        (kernel E on the card) on per-output-channel int8 weights with
+        BatchNorm folded in (``models.quantize.quantize_state_dict``) and
+        a per-tensor activation scale taken from each input on the device.
+        ``"static"``: the same with the activation scales frozen from
+        ``calibration_batches`` (``models.quantize.
+        calibrate_activation_scales``): no per-call reduction; inputs
+        hotter than the calibration range clip at +-127. Uncalibrated
+        static weights are rejected here.
+      calibration_batches: for ``quantized="static"`` only: one batch or
+        an iterable of batches in any ``run_batch`` wire format, prepared
+        on the engine's device as serving prepares them.
       fuse_stem, fuse_bottleneck: on the folded model, run the stem and
         the eligible bottlenecks as the fused kernels (``SMAP``).
+      overflow_fallback: when an image has more peaks in a joint than
+        ``cfg.post.assoc_peaks`` (``PoseResults.overflow``), decode the
+        batch again at ``cfg.post.max_peaks``, so crowded scenes are not
+        cut. It reads the flag on the host, once per batch.
+      adaptive_capacities: ascending peak capacities, e.g. ``(8, 16, 40)``:
+        the decode's cost grows with the square of its capacity, so each
+        batch is decoded at the smallest rung speculated to fit, from the
+        peak counts of earlier batches (the first batch at the top rung),
+        with no wait between forward and decode. The batch's own count
+        (the most peaks in one joint, from the forward's maps) comes to the
+        host behind it; if it exceeds the rung, the batch is decoded again
+        at the rung that fits (``max_peaks`` above the top rung). The
+        results equal those of the full-capacity decode at every rung.
+        Not with ``overflow_fallback``, which the ladder already covers.
     """
 
     def __init__(self, state_dict: Mapping[str, torch.Tensor],
                  cfg: Config = Config(),
                  refine_state_dict: Optional[Mapping[str, torch.Tensor]] = None,
                  do_flip: bool = False, device="cuda", quantized=False,
-                 fuse_stem: bool = False, fuse_bottleneck: bool = False):
+                 fuse_stem: bool = False, fuse_bottleneck: bool = False,
+                 calibration_batches=None, overflow_fallback: bool = False,
+                 adaptive_capacities: Optional[Sequence[int]] = None):
+        if overflow_fallback and adaptive_capacities:
+            raise ValueError("adaptive_capacities already escalates; don't "
+                             "combine it with overflow_fallback")
+        self.device = get_device(device)
         if quantized and not cfg.model.quantized:
-            state_dict = fold_bn_state_dict(state_dict)
+            if quantized == "static" and calibration_batches is None:
+                raise ValueError(
+                    'quantized="static" needs calibration_batches (or pass '
+                    'calibrated weights with cfg.model.quantized="static")')
             cfg = dataclasses.replace(cfg, model=dataclasses.replace(
                 cfg.model, quantized=quantized))
+            if quantized == "folded":
+                state_dict = fold_bn_state_dict(state_dict)
+            else:
+                state_dict = quantize_state_dict(state_dict)
+            if quantized == "static":
+                state_dict = calibrate_activation_scales(
+                    state_dict, cfg.model,
+                    [prepare_images(self.to_device(b))
+                     for b in _batch_list(calibration_batches)])
+        if cfg.model.quantized == "static":
+            check_static_scales(state_dict)
         self.cfg = cfg
-        self.device = get_device(device)
         self.do_flip = do_flip
         self.model = SMAP(cfg.model, fuse_stem=fuse_stem,
                           fuse_bottleneck=fuse_bottleneck)
@@ -80,6 +136,17 @@ class SMAPInference:
             self.refine_model = RefineNet(cfg.refine)
             self.refine_model.load_state_dict(refine_state_dict, strict=True)
             self.refine_model.to(self.device).eval()
+        self.overflow_fallback = overflow_fallback
+        self.adaptive_capacities = (tuple(sorted(adaptive_capacities))
+                                    if adaptive_capacities else None)
+        if (self.adaptive_capacities
+                and self.adaptive_capacities[-1] > cfg.post.max_peaks):
+            raise ValueError("adaptive capacity exceeds max_peaks")
+        # The ladder's rung for the next batch, learnt from the counts of
+        # earlier ones; the first batch takes the top rung, so that a cold
+        # engine never decodes twice.
+        self._spec_cap = (self.adaptive_capacities[-1]
+                          if self.adaptive_capacities else None)
 
     # -- stages -------------------------------------------------------------
 
@@ -99,11 +166,16 @@ class SMAPInference:
         return out2d, out3d2[:b], outrd2[:b]
 
     @torch.no_grad()
-    def postprocess(self, maps: Maps, info: ScaleInfo,
-                    plain: bool = False) -> PoseResults:
-        """Decode NHWC maps (``plain``: with the kernels' plain versions)."""
+    def postprocess(self, maps: Maps, info: ScaleInfo, plain: bool = False,
+                    capacity: Optional[int] = None) -> PoseResults:
+        """Decode NHWC maps (``plain``: with the kernels' plain versions;
+        ``capacity``: at that many peaks a joint instead of
+        ``cfg.post.assoc_peaks``)."""
         net_h, net_w = self.cfg.input_shape
-        results = postprocess_batch(*maps, info, self.cfg.post,
+        post = self.cfg.post
+        if capacity is not None:
+            post = dataclasses.replace(post, assoc_peaks=capacity)
+        results = postprocess_batch(*maps, info, post,
                                     net_w=float(net_w), net_h=float(net_h),
                                     stride=self.cfg.stride, plain=plain)
         if self.refine_model is None:
@@ -118,7 +190,12 @@ class SMAPInference:
     # -- placement ----------------------------------------------------------
 
     def place(self, images, scales: Scales) -> Tuple[torch.Tensor, ScaleInfo]:
-        """Frames and metadata onto the device. Host frames go through
+        """Frames and metadata onto the device (:meth:`to_device`,
+        :meth:`scale_info`)."""
+        return self.to_device(images), self.scale_info(scales)
+
+    def to_device(self, images) -> torch.Tensor:
+        """Frames (numpy or torch) onto the device. Host frames go through
         pinned memory with a non-blocking copy, so the host does not wait
         for the work queued before them."""
         if isinstance(images, np.ndarray):
@@ -127,7 +204,7 @@ class SMAPInference:
             if self.device.type == "cuda" and images.device.type == "cpu":
                 images = images.pin_memory()
             images = images.to(self.device, non_blocking=True)
-        return images, self.scale_info(scales)
+        return images
 
     def scale_info(self, scales: Scales) -> ScaleInfo:
         """Per-image scale dicts -> ScaleInfo on the device (a ScaleInfo
@@ -142,6 +219,54 @@ class SMAPInference:
         table = table.to(self.device, non_blocking=True)
         return ScaleInfo(*table.unbind(dim=1))
 
+    # -- the capacity ladder ------------------------------------------------
+
+    def peak_count(self, out2d: torch.Tensor) -> torch.Tensor:
+        """The most peaks in one joint of one image of the batch (at most
+        ``max_peaks``), a 0-dim int64 tensor on the device: the decode's
+        own NMS mask (``ops.nms._local_max_mask``) on the forward's 2D
+        maps, so that ``count > capacity`` is exactly the decode's overflow
+        condition."""
+        kpt = out2d.float().permute(0, 3, 1, 2)[:, :NUM_JOINTS] / 255.0
+        mask = _local_max_mask(kpt, self.cfg.post.nms_threshold)
+        return torch.clamp(mask.sum(dim=(-2, -1)).max(),
+                           max=self.cfg.post.max_peaks)
+
+    def _rung_for(self, n: int) -> int:
+        """The smallest rung that fits ``n`` peaks (``max_peaks`` above the
+        top one)."""
+        return next((c for c in self.adaptive_capacities if c >= n),
+                    self.cfg.post.max_peaks)
+
+    def _ladder_dispatch(self, maps: Maps, info: ScaleInfo):
+        """Queue the peak count's copy to the host and the decode at the
+        speculated rung, without waiting for the device. Returns what
+        :meth:`_ladder_resolve` takes."""
+        count = self.peak_count(maps[0])
+        if self.device.type == "cuda":
+            host = torch.empty((), dtype=count.dtype, pin_memory=True)
+            host.copy_(count, non_blocking=True)
+            ready = torch.cuda.Event()
+            ready.record()
+        else:
+            host, ready = count, None
+        cap = self._spec_cap
+        return maps, info, self.postprocess(maps, info, capacity=cap), \
+            host, ready, cap
+
+    def _ladder_resolve(self, maps: Maps, info: ScaleInfo,
+                        results: PoseResults, host: torch.Tensor, ready,
+                        cap: int) -> PoseResults:
+        """Wait for the batch's peak count only, decode again if the rung
+        was too small, and speculate the next batch's rung from it."""
+        if ready is not None:
+            ready.synchronize()
+        n = int(host)
+        self._spec_cap = self._rung_for(n)
+        if n > cap:
+            results = self.postprocess(maps, info, capacity=self._spec_cap)
+        return results
+
     # -- entry points -------------------------------------------------------
 
     def run_batch(self, images, scales: Scales) -> PoseResults:
@@ -153,10 +278,19 @@ class SMAPInference:
           scales: per-image scale dicts, or a ScaleInfo on the device.
 
         Returns:
-          PoseResults on the device (the call does not wait for it).
+          PoseResults on the device. Without the ladder or the overflow
+          fallback the call does not wait for the device; with them it
+          waits for the batch's peak count or overflow flag.
         """
         images, info = self.place(images, scales)
-        return self.postprocess(self.forward(images), info)
+        maps = self.forward(images)
+        if self.adaptive_capacities:
+            return self._ladder_resolve(*self._ladder_dispatch(maps, info))
+        results = self.postprocess(maps, info)
+        if self.overflow_fallback and bool(results.overflow.any()):
+            results = self.postprocess(maps, info,
+                                       capacity=self.cfg.post.max_peaks)
+        return results
 
     def run_stream(self, batches: Iterable[Optional[Tuple[Any, Scales]]]
                    ) -> Iterator[PoseResults]:
@@ -164,21 +298,56 @@ class SMAPInference:
         PoseResults per batch, in order, with one batch in flight: batch
         ``i`` is yielded only after batch ``i + 1`` has been queued, so the
         host's copy and launches of the next batch overlap the device's
-        work on this one. A ``None`` item is a flush: the batch in flight
-        is yielded at once."""
+        work on this one (with the ladder, batch ``i``'s peak count is read
+        only then). A ``None`` item is a flush: the batch in flight is
+        yielded at once."""
         pending = None
+
+        def resolve(item):
+            return (self._ladder_resolve(*item) if self.adaptive_capacities
+                    else item)
+
         for entry in batches:
             if entry is None:
                 if pending is not None:
-                    yield pending
+                    yield resolve(pending)
                     pending = None
                 continue
-            item = self.run_batch(*entry)
+            if self.adaptive_capacities:
+                images, info = self.place(*entry)
+                item = self._ladder_dispatch(self.forward(images), info)
+            else:
+                item = self.run_batch(*entry)
             if pending is not None:
-                yield pending
+                yield resolve(pending)
             pending = item
         if pending is not None:
-            yield pending
+            yield resolve(pending)
+
+    def run_batch_timed(self, images, scales: Scales
+                        ) -> Tuple[PoseResults, Dict[str, float]]:
+        """``run_batch`` (without the ladder's or the fallback's second
+        decode) with the wall time of each stage, each ended by a device
+        synchronization: ``transfer_ms`` (frames and metadata to the
+        device), ``model_ms`` (the forward), ``postproc_ms`` (the
+        decode)."""
+        def sync():
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+        t0 = time.perf_counter()
+        x, info = self.place(images, scales)
+        sync()
+        t1 = time.perf_counter()
+        maps = self.forward(x)
+        sync()
+        t2 = time.perf_counter()
+        results = self.postprocess(maps, info)
+        sync()
+        t3 = time.perf_counter()
+        return results, {"transfer_ms": (t1 - t0) * 1e3,
+                         "model_ms": (t2 - t1) * 1e3,
+                         "postproc_ms": (t3 - t2) * 1e3}
 
     @staticmethod
     def results_to_pairs(results: PoseResults, img_paths: Sequence[str],
@@ -213,11 +382,14 @@ def run_inference(image_dir: str, state_dict: Mapping[str, torch.Tensor],
                   do_flip: bool = False, batch_size: int = 16,
                   output_json: Optional[str] = None, device="cuda",
                   quantized=False, fuse_stem: bool = False,
-                  fuse_bottleneck: bool = False) -> Dict[str, Any]:
+                  fuse_bottleneck: bool = False, calibration_batches=None,
+                  adaptive_capacities: Optional[Sequence[int]] = None
+                  ) -> Dict[str, Any]:
     """Inference over a directory of images (jpg / png / jpeg, recursive):
     letterbox on the host (OpenCV), run the pipeline, return (and
     optionally write) the reference's result JSON. ``quantized``,
-    ``fuse_stem`` and ``fuse_bottleneck`` go to ``SMAPInference``."""
+    ``calibration_batches``, ``fuse_stem``, ``fuse_bottleneck`` and
+    ``adaptive_capacities`` go to ``SMAPInference``."""
     from smap_tpu_torch.data.preprocess import letterbox_image
 
     paths: List[str] = []
@@ -228,7 +400,9 @@ def run_inference(image_dir: str, state_dict: Mapping[str, torch.Tensor],
     engine = SMAPInference(state_dict, cfg, refine_state_dict, do_flip,
                            device=device, quantized=quantized,
                            fuse_stem=fuse_stem,
-                           fuse_bottleneck=fuse_bottleneck)
+                           fuse_bottleneck=fuse_bottleneck,
+                           calibration_batches=calibration_batches,
+                           adaptive_capacities=adaptive_capacities)
     result: Dict[str, Any] = {"model_pattern": "MIX", "3d_pairs": []}
     chunks = collections.deque()
 

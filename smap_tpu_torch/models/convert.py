@@ -11,7 +11,10 @@ of ``convert_smap_state_dict`` / ``convert_refinenet_state_dict`` in
 * Flax block names ``layerN_i`` -> torch Sequential keys ``layerN.i``.
 
 A BN-folded tree (``fold_bn_variables``' output: ``"params"`` only, every
-block ``{conv: {kernel, bias}}``) gives the folded model's state_dict.
+block ``{conv: {kernel, bias}}``) gives the folded model's state_dict; an
+int8 tree (``quantize_variables``' output, every block ``{conv: {kernel_q,
+kernel_scale, bias[, act_scale]}}``, calibrated or not) the int8 model's:
+``kernel_q`` HWIO int8 -> OIHW int8, the float32 leaves by name.
 """
 
 from __future__ import annotations
@@ -46,21 +49,32 @@ def _tensor(arr: np.ndarray) -> torch.Tensor:
     return torch.tensor(arr, dtype=torch.float32)   # a contiguous copy
 
 
+# Conv leaves of a JAX tree -> state_dict names; the rest keep theirs
+# (bias, and the int8 leaves kernel_scale and act_scale).
+_CONV_LEAF = {"kernel": "weight"}
+
+
 def _zero_count() -> torch.Tensor:
     return torch.tensor(0, dtype=torch.int64)
 
 
 def smap_state_dict(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """JAX SMAP variables -> the port's (and the reference's) state_dict;
-    a BN-folded tree -> the state_dict of ``ModelConfig(quantized="folded")``."""
+    a BN-folded tree -> the state_dict of ``ModelConfig(quantized="folded")``;
+    an int8 tree -> that of ``ModelConfig(quantized=True)``, or of
+    ``"static"`` when calibrated."""
     out: Dict[str, torch.Tensor] = {}
     for path, arr in _flatten(variables["params"]):
         *scope, module, leaf = path
         key = _key(tuple(scope) + (module,))
         if module == "conv":
-            out[f"{key}.weight" if leaf == "kernel" else f"{key}.bias"] = (
-                _tensor(arr.transpose(3, 2, 0, 1) if leaf == "kernel"
-                        else arr))
+            name = f"{key}.{_CONV_LEAF.get(leaf, leaf)}"
+            if leaf == "kernel_q":
+                out[name] = torch.tensor(arr.transpose(3, 2, 0, 1),
+                                         dtype=torch.int8)
+            else:
+                out[name] = _tensor(arr.transpose(3, 2, 0, 1)
+                                    if leaf == "kernel" else arr)
         elif module == "bn":
             out[f"{key}.{'weight' if leaf == 'scale' else 'bias'}"] = (
                 _tensor(arr))

@@ -10,7 +10,7 @@ state_dict keys, e.g. ``stage0.downsample.layer1.0.conv_bn_relu1.conv.weight``
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,22 +37,22 @@ def _pack_stem(kernel: torch.Tensor, bias: torch.Tensor):
 class ResNetTop(PackedModule):
     """Stem: 7x7/2 conv + BN + ReLU, then 3x3/2 max-pool.
 
-    ``fuse`` (with ``folded``): at width 64, on an image whose height is a
-    multiple of 32 and width a multiple of 4 (the JAX package's condition),
-    the stem runs as one :func:`~smap_tpu_torch.ops.fused_stem.fused_stem`
-    call, in bf16 whatever the model's dtype, from the same
-    ``conv.conv.{weight,bias}``."""
+    ``fuse`` (with ``quant="folded"``): at width 64, on an image whose
+    height is a multiple of 32 and width a multiple of 4 (the JAX package's
+    condition), the stem runs as one
+    :func:`~smap_tpu_torch.ops.fused_stem.fused_stem` call, in bf16
+    whatever the model's dtype, from the same ``conv.conv.{weight,bias}``.
+    """
 
-    def __init__(self, width: int = 64, folded: bool = False,
+    def __init__(self, width: int = 64, quant: Any = False,
                  fuse: bool = False):
         super().__init__()
-        self.width, self.folded, self.fuse = width, folded, fuse
-        self.conv = ConvBnRelu(3, width, 7, stride=2, padding=3,
-                               folded=folded)
+        self.width, self.quant, self.fuse = width, quant, fuse
+        self.conv = ConvBnRelu(3, width, 7, stride=2, padding=3, quant=quant)
         self._packed = PackedWeights(_pack_stem)
 
     def _fuse_eligible(self, x: torch.Tensor) -> bool:
-        return (self.fuse and self.folded and self.width == 64
+        return (self.fuse and self.quant == "folded" and self.width == 64
                 and x.shape[2] % 32 == 0 and x.shape[3] % 4 == 0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -71,7 +71,7 @@ class DownsampleModule(nn.Module):
     """ResNet-50 trunk emitting 4 scales, coarsest first."""
 
     def __init__(self, has_skip: bool = False, width: int = 64,
-                 folded: bool = False, fuse: bool = False):
+                 quant: Any = False, fuse: bool = False):
         super().__init__()
         self.has_skip = has_skip
         in_planes = width
@@ -83,7 +83,7 @@ class DownsampleModule(nn.Module):
                 s = stride if bi == 0 else 1
                 has_ds = bi == 0 and (s != 1 or in_planes != planes * 4)
                 layer.append(Bottleneck(in_planes, planes, s, has_ds,
-                                        folded, fuse))
+                                        quant, fuse))
                 in_planes = planes * 4
             setattr(self, f"layer{li + 1}", nn.Sequential(*layer))
 
@@ -108,14 +108,14 @@ class UpsampleUnit(nn.Module):
                  output_shape: Tuple[int, int], kpt_paf_channels: int,
                  depth_channels: int, chl_num: int = 256,
                  gen_skip: bool = False, gen_cross_conv: bool = False,
-                 cross_channels: int = 64, folded: bool = False):
+                 cross_channels: int = 64, quant: Any = False):
         super().__init__()
         self.ind = ind
         self.up_size = tuple(up_size)
         self.output_shape = tuple(output_shape)
 
         def block(cin, cout, k, has_relu=True):
-            return ConvBnRelu(cin, cout, k, has_relu=has_relu, folded=folded)
+            return ConvBnRelu(cin, cout, k, has_relu=has_relu, quant=quant)
 
         self.u_skip = block(in_planes, chl_num, 1, has_relu=False)
         if ind > 0:
@@ -161,7 +161,7 @@ class UpsampleModule(nn.Module):
     def __init__(self, output_shape: Tuple[int, int], kpt_paf_channels: int,
                  depth_channels: int, chl_num: int = 256,
                  gen_skip: bool = False, gen_cross_conv: bool = False,
-                 width: int = 64, folded: bool = False):
+                 width: int = 64, quant: Any = False):
         super().__init__()
         h, w = output_shape
         up_sizes = [(h // 8, w // 8), (h // 4, w // 4), (h // 2, w // 2),
@@ -171,7 +171,7 @@ class UpsampleModule(nn.Module):
             setattr(self, f"up{i + 1}", UpsampleUnit(
                 i, in_planes[i], up_sizes[i], output_shape, kpt_paf_channels,
                 depth_channels, chl_num, gen_skip, gen_cross_conv, width,
-                folded))
+                quant))
 
     def forward(self, x4, x3, x2, x1,
                 head_spec: Sequence[Heads] = ALL_HEADS):
@@ -197,13 +197,12 @@ class Stage(nn.Module):
     def __init__(self, cfg: ModelConfig, has_skip: bool, gen_skip: bool,
                  gen_cross_conv: bool, fuse_bottleneck: bool = False):
         super().__init__()
-        folded = cfg.quantized == "folded"
-        self.downsample = DownsampleModule(has_skip, cfg.trunk_width, folded,
-                                           fuse_bottleneck)
+        self.downsample = DownsampleModule(has_skip, cfg.trunk_width,
+                                           cfg.quantized, fuse_bottleneck)
         self.upsample = UpsampleModule(
             cfg.output_shape, cfg.kpt_paf_channels, cfg.num_limbs,
             cfg.upsample_channels, gen_skip, gen_cross_conv, cfg.trunk_width,
-            folded)
+            cfg.quantized)
 
     def forward(self, x, skip1, skip2, head_spec: Sequence[Heads] = ALL_HEADS):
         x4, x3, x2, x1 = self.downsample(x, skip1, skip2)
@@ -223,7 +222,10 @@ class SMAP(nn.Module):
     computes in the dtype of its convolutions' parameters.
 
     ``cfg.quantized == "folded"`` builds the BN-folded serving model
-    (``models.quantize.fold_bn_state_dict`` gives its weights). On it,
+    (``models.quantize.fold_bn_state_dict`` gives its weights), True or
+    ``"static"`` the int8 one (``models.quantize.quantize_state_dict``,
+    then ``calibrate_activation_scales`` for ``"static"``). On the folded
+    model,
     ``fuse_stem`` and ``fuse_bottleneck`` route the stem and the eligible
     bottlenecks through the fused kernels; they are the counterparts of the
     JAX package's ``SMAP_TPU_FUSE_STEM`` and ``SMAP_TPU_FUSE_BOTTLENECK``,
@@ -234,8 +236,7 @@ class SMAP(nn.Module):
                  fuse_stem: bool = False, fuse_bottleneck: bool = False):
         super().__init__()
         self.cfg = cfg
-        self.top = ResNetTop(cfg.trunk_width, cfg.quantized == "folded",
-                             fuse_stem)
+        self.top = ResNetTop(cfg.trunk_width, cfg.quantized, fuse_stem)
         for i in range(cfg.stage_num):
             last = i == cfg.stage_num - 1
             setattr(self, f"stage{i}", Stage(cfg, has_skip=i > 0,
@@ -246,7 +247,7 @@ class SMAP(nn.Module):
     def forward(self, imgs: torch.Tensor,
                 head_specs: Optional[Sequence[Sequence[Heads]]] = None
                 ) -> Dict[str, List[List[Optional[torch.Tensor]]]]:
-        dtype = self.top.conv.conv.weight.dtype
+        dtype = self.top.conv.dtype
         x = self.top(imgs.permute(0, 3, 1, 2).to(dtype))
         outputs = {"heatmap_2d": [], "det_d": [], "root_d": []}
         skip1 = skip2 = None

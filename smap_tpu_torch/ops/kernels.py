@@ -9,8 +9,9 @@ returns ``cudaGetLastError()``; the wrappers here raise if it is not 0.
 
 The wrappers take CUDA tensors only and raise on anything else: the plain
 PyTorch versions live beside their callers (``ops/paf.py``,
-``ops/association.py``, ``ops/fused_stem.py``, ``ops/fused_block.py``),
-which choose by device. ``LAUNCHES`` counts the launches of each kernel.
+``ops/association.py``, ``ops/fused_stem.py``, ``ops/fused_block.py``,
+``ops/int8_conv.py``), which choose by device. ``LAUNCHES`` counts the
+launches of each kernel.
 """
 
 from __future__ import annotations
@@ -30,12 +31,12 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("paf_score.cu", "associate.cu", "fused_stem.cu",
-           "fused_bottleneck.cu")
+           "fused_bottleneck.cu", "int8_conv.cu")
 # -fmad=false: the PAF kernel must round each product and sum as the plain
 # version does (a contracted FMA moves sample points across .5 boundaries
 # and samples across the threshold). No fast math: sqrtf and / stay IEEE.
-# The stem and bottleneck kernels multiply on the tensor cores, which the
-# flag leaves alone.
+# The stem, bottleneck and int8 kernels multiply on the tensor cores, which
+# the flag leaves alone.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-fmad=false")
 
@@ -51,7 +52,8 @@ MAX_PAF_SAMPLES = 32
 STEM_COUT, STEM_ROW = 64, 232
 
 LAUNCHES: Dict[str, int] = {"paf_score": 0, "associate": 0,
-                            "fused_stem": 0, "fused_bottleneck": 0}
+                            "fused_stem": 0, "fused_bottleneck": 0,
+                            "int8_conv": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
@@ -140,6 +142,8 @@ def _load() -> ctypes.CDLL:
             lib.fused_stem_launch.restype = I
             lib.fused_bottleneck_launch.argtypes = [P] * 4 + [I] * 6 + [P]
             lib.fused_bottleneck_launch.restype = I
+            lib.int8_conv_launch.argtypes = [P] * 6 + [I] * 12 + [P]
+            lib.int8_conv_launch.restype = I
             _lib = lib
     return _lib
 
@@ -351,4 +355,59 @@ def fused_bottleneck(x: torch.Tensor, packed) -> torch.Tensor:
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "fused_bottleneck_kernel")
     LAUNCHES["fused_bottleneck"] += 1
+    return out
+
+
+def int8_conv(x: torch.Tensor, packed: torch.Tensor,
+              kernel_scale: torch.Tensor, s_x: torch.Tensor,
+              bias: torch.Tensor, *, kh: int, kw: int, stride: int,
+              padding: int, relu: bool,
+              out_dtype: torch.dtype) -> torch.Tensor:
+    """``int8_conv_kernel``: one int8 convolution with its dequantization,
+    bias, cast and ReLU.
+
+    x [B, H, W, Cin] int8 NHWC, Cin a multiple of 4, 16-byte aligned;
+    packed [Cout, K] int8 (``ops.int8_conv.pack_int8_weights``), K a
+    multiple of 32 and at least kh * kw * Cin, 16-byte aligned;
+    kernel_scale and bias [Cout] float32; s_x a 0-dim float32 tensor; all
+    contiguous on one CUDA device. Returns [B, Ho, Wo, Cout] NHWC in
+    ``out_dtype`` (bfloat16 or float32).
+    """
+    if x.ndim != 4 or packed.ndim != 2:
+        raise ValueError("x must be [B, H, W, Cin] and packed [Cout, K]")
+    B, H, W, cin = x.shape
+    cout, kpad = packed.shape
+    dev = x.device
+    if cin % 4 or kpad % 32 or kpad < kh * kw * cin:
+        raise ValueError(f"int8_conv_kernel takes Cin a multiple of 4 and "
+                         f"rows of a multiple of 32 >= {kh} x {kw} x Cin; "
+                         f"got Cin {cin}, rows of {kpad}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"int8_conv_kernel writes bfloat16 or float32, "
+                         f"not {out_dtype}")
+    if stride < 1 or padding < 0:
+        raise ValueError(f"stride {stride}, padding {padding}")
+    _check(x, "x", torch.int8, (B, H, W, cin), dev, align=16)
+    _check(packed, "packed", torch.int8, (cout, kpad), dev, align=16)
+    _check(kernel_scale, "kernel_scale", torch.float32, (cout,), dev)
+    _check(bias, "bias", torch.float32, (cout,), dev)
+    _check(s_x, "s_x", torch.float32, (), dev)
+    ho = (H + 2 * padding - kh) // stride + 1
+    wo = (W + 2 * padding - kw) // stride + 1
+    if ho <= 0 or wo <= 0:
+        raise ValueError(f"a {kh}x{kw} kernel does not fit a {H}x{W} input "
+                         f"with padding {padding}")
+    lib = _load()
+    out = torch.empty((B, ho, wo, cout), dtype=out_dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(dev):
+        err = lib.int8_conv_launch(
+            x.data_ptr(), packed.data_ptr(), kernel_scale.data_ptr(),
+            s_x.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H, W, cin,
+            cout, kh, kw, stride, padding, kpad, int(relu),
+            int(out_dtype == torch.float32),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "int8_conv_kernel")
+    LAUNCHES["int8_conv"] += 1
     return out

@@ -110,16 +110,20 @@ def test_folded_model_matches_jax():
 
 
 def test_quantized_config_takes_folded_only():
+    """ModelConfig.quantized takes the JAX package's four modes (False,
+    "folded", and the int8 True and "static" since they are ported) and
+    nothing else."""
     from smap_tpu_torch.config import Config, ModelConfig
     from smap_tpu_torch.inference import SMAPInference
     from smap_tpu_torch.models.smap import SMAP
 
     assert ModelConfig().quantized is False
-    assert ModelConfig(quantized="folded").quantized == "folded"
-    for mode in (True, "static"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for mode in ("folded", True, "static"):
+        assert ModelConfig(quantized=mode).quantized == mode
+    for mode in ("int4", "dynamic", 2):
+        with pytest.raises(ValueError, match="quantized"):
             ModelConfig(quantized=mode)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="quantized"):
             SMAPInference(SMAP(ModelConfig()).state_dict(), Config(),
                           device="cpu", quantized=mode)
 

@@ -122,7 +122,7 @@ def test_bottleneck_fuses_where_jax_does(monkeypatch, h, cin, planes, stride,
     jax.eval_shape(lambda x: jblock.init_with_output(jax.random.PRNGKey(0),
                                                      x),
                    jnp.zeros((1, h, 24, cin), jnp.float32))
-    block = Bottleneck(cin, planes, stride, has_ds, folded=True, fuse=True)
+    block = Bottleneck(cin, planes, stride, has_ds, quant="folded", fuse=True)
     with torch.no_grad():
         block(torch.zeros((1, cin, h, 24)))
     assert calls == {"jax": fused, "port": fused}

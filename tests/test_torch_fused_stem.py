@@ -129,7 +129,7 @@ def test_stem_fuses_where_jax_does(monkeypatch, hw, fused):
     jax.eval_shape(lambda x: jtop.init_with_output(jax.random.PRNGKey(0), x),
                    jnp.zeros((1, *hw, 3), jnp.float32))
     with torch.no_grad():
-        ResNetTop(folded=True, fuse=True)(torch.zeros((1, 3, *hw)))
+        ResNetTop(quant="folded", fuse=True)(torch.zeros((1, 3, *hw)))
     assert calls == {"jax": fused, "port": fused}
 
 

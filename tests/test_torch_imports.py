@@ -17,6 +17,7 @@ SLICE_MODULES = (
     "smap_tpu_torch.models.smap",
     "smap_tpu_torch.models.refinenet",
     "smap_tpu_torch.models.convert",
+    "smap_tpu_torch.models.quantize",
     "smap_tpu_torch.ops.nms",
     "smap_tpu_torch.ops.paf",
     "smap_tpu_torch.ops.association",
@@ -24,6 +25,9 @@ SLICE_MODULES = (
     "smap_tpu_torch.ops.refine",
     "smap_tpu_torch.ops.postprocess",
     "smap_tpu_torch.ops.kernels",
+    "smap_tpu_torch.ops.int8_conv",
+    "smap_tpu_torch.ops.fused_stem",
+    "smap_tpu_torch.ops.fused_block",
     "smap_tpu_torch.inference",
     "smap_tpu_torch.golden",
 )

@@ -313,3 +313,124 @@ def test_folded_engine_runs_both_fused_kernels(dev):
     for g, b, t in zip(got, base, truth):
         assert bool(torch.isfinite(g).all())
         assert rel(g, t) <= 2.0 * rel(b, t) + 1e-4
+
+
+def _int8_conv_inputs(gen, B, H, W, cin, cout, k, dev):
+    """Seeded int8 activations and weights, scales and a bias such that
+    about half of the outputs are negative."""
+    xq = torch.randint(-127, 128, (B, cin, H, W), generator=gen,
+                       dtype=torch.int8).to(dev).contiguous(
+        memory_format=torch.channels_last)
+    wq = torch.randint(-127, 128, (cout, cin, k, k), generator=gen,
+                       dtype=torch.int8).to(dev)
+    w_scale = (torch.rand(cout, generator=gen) * 1e-3 + 1e-4).to(dev)
+    s_x = torch.tensor(0.0371, device=dev)
+    bias = (torch.randn(cout, generator=gen) * 0.5).to(dev)
+    return xq, wq, w_scale, s_x, bias
+
+
+# (B, H, W, Cin, Cout, k, stride, pad, relu, out dtype): the stem, a 1x1, a
+# 3x3/2, a Cout-1 head, and ragged ones (odd sizes, Cin 8 and 3, Cout 43).
+INT8_SHAPES = [
+    (2, 64, 96, 3, 64, 7, 2, 3, True, torch.bfloat16),      # stem
+    (2, 32, 52, 256, 64, 1, 1, 0, True, torch.bfloat16),    # 1x1
+    (2, 32, 52, 128, 128, 3, 2, 1, True, torch.bfloat16),   # 3x3/2
+    (2, 32, 52, 256, 1, 3, 1, 1, False, torch.bfloat16),    # root-depth head
+    (1, 13, 17, 8, 43, 3, 1, 1, False, torch.float32),      # ragged, f32
+    (3, 15, 11, 3, 14, 7, 2, 3, True, torch.float32),
+    (1, 9, 7, 64, 1, 1, 2, 0, False, torch.float32),
+    (2, 16, 26, 2048, 256, 1, 1, 0, False, torch.bfloat16),  # deep K
+]
+
+
+@pytest.mark.parametrize("B,H,W,cin,cout,k,stride,pad,relu,dtype",
+                         INT8_SHAPES)
+def test_int8_conv_kernel_matches_plain(dev, B, H, W, cin, cout, k, stride,
+                                        pad, relu, dtype):
+    """Kernel E bit-equal to int8_conv2d_plain on the card."""
+    from smap_tpu_torch.ops import kernels
+    from smap_tpu_torch.ops.int8_conv import int8_conv2d, int8_conv2d_plain
+
+    gen = torch.Generator().manual_seed(H * W + cin + cout)
+    args = _int8_conv_inputs(gen, B, H, W, cin, cout, k, dev)
+    kernels.reset_launch_counts()
+    got = int8_conv2d(*args, stride, pad, relu, dtype)
+    assert kernels.LAUNCHES["int8_conv"] == 1
+    want = int8_conv2d_plain(*args, stride, pad, relu, dtype)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype == dtype
+    view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.contiguous().view(view),
+                       want.contiguous().view(view))
+
+
+def test_int8_conv_kernel_rejects_what_it_does_not_take(dev):
+    from smap_tpu_torch.ops import kernels
+    from smap_tpu_torch.ops.int8_conv import pack_int8_weights
+
+    gen = torch.Generator().manual_seed(0)
+    xq, wq, w_scale, s_x, bias = _int8_conv_inputs(gen, 1, 8, 8, 16, 8, 3,
+                                                   dev)
+    x = xq.permute(0, 2, 3, 1)
+    packed = pack_int8_weights(wq)
+    kw = dict(kh=3, kw=3, stride=1, padding=1, relu=False,
+              out_dtype=torch.bfloat16)
+    kernels.int8_conv(x, packed, w_scale, s_x, bias, **kw)   # takes these
+    for bad in ((x[..., :6].contiguous(), packed, w_scale, s_x, bias),
+                (x, wq.reshape(8, -1), w_scale, s_x, bias),
+                (x, packed, w_scale, s_x.cpu(), bias),
+                (x, packed, w_scale.bfloat16(), s_x, bias),
+                (x.float(), packed, w_scale, s_x, bias)):
+        with pytest.raises(ValueError):
+            kernels.int8_conv(*bad, **kw)
+    with pytest.raises(ValueError):
+        kernels.int8_conv(x, packed, w_scale, s_x, bias,
+                          **dict(kw, out_dtype=torch.float16))
+
+
+def test_int8_static_engine_serves_a_batch(dev):
+    """SMAPInference(quantized="static") at full width, one stage, 64x96,
+    calibrated on its batch: one kernel E launch per conv the readout runs,
+    1 A and 1 B per decode, maps equal to the dynamic engine's on the
+    calibration batch and close to a float32 forward."""
+    import dataclasses
+
+    from smap_tpu_torch.config import Config, ModelConfig, PostProcessConfig
+    from smap_tpu_torch.inference import SMAPInference
+    from smap_tpu_torch.models.smap import init_smap
+    from smap_tpu_torch.ops import kernels
+    from smap_tpu_torch.runtime import no_tf32
+
+    mcfg = ModelConfig(stage_num=1, output_shape=(16, 24))
+    cfg = Config(model=mcfg, post=PostProcessConfig(max_peaks=31,
+                                                    assoc_peaks=8),
+                 input_shape=(64, 96), output_shape=(16, 24))
+    sd = init_smap(mcfg, seed=3).state_dict()
+    frames = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 256, (2, 64, 96, 3), np.uint8))
+    static = SMAPInference(sd, cfg, device=dev, quantized="static",
+                           calibration_batches=frames)
+    dynamic = SMAPInference(sd, cfg, device=dev, quantized=True)
+    n_convs = sum(k.endswith("act_scale")
+                  for k in static.model.state_dict())
+    scales = [{"scale": 0.05, "img_width": 1920.0, "img_height": 1080.0,
+               "f_x": 1500.0, "f_y": 1500.0, "cx": 960.0, "cy": 540.0}] * 2
+    kernels.reset_launch_counts()
+    res = static.run_batch(frames, scales)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["int8_conv"] == n_convs > 0
+    assert kernels.LAUNCHES["paf_score"] == kernels.LAUNCHES["associate"] == 1
+    assert tuple(res.count.shape) == (2,)
+    got = static.forward(static.to_device(frames))
+    for a, b in zip(got, dynamic.forward(dynamic.to_device(frames))):
+        assert torch.equal(a, b)
+    f32 = dataclasses.replace(cfg, model=dataclasses.replace(
+        mcfg, compute_dtype="float32"))
+    with no_tf32():
+        truth = SMAPInference(sd, f32, device=dev).forward(
+            frames.to(dev))
+    for g, t in zip(got, truth):
+        assert bool(torch.isfinite(g).all())
+        corr = float(torch.corrcoef(torch.stack([g.flatten(),
+                                                 t.flatten()]))[0, 1])
+        assert corr > 0.98
