@@ -39,6 +39,18 @@ exits non-zero with no result line):
    folded-unfused (cuDNN) and unfolded engines; the folded-fused maps' distance to a float32 forward
    within 2x the unfolded bf16 engine's + 1e-4; one batch decoded end to
    end.
+7. int8 serving: ``SMAPInference(quantized="static")`` calibrated on the
+   first batch of phase 4, at full width on its frames: every conv of the
+   forward in kernel E, which quantizes its bf16 input itself (206 launches
+   a forward, 1 A and 1 B per decode); E bit-equal to its plain version on
+   the forward's own conv inputs at all its conv shapes and at ragged ones
+   (int8 and bf16 inputs, ties of x / s_x, a clipping scale), each shape
+   timed in turns with the plain quantize + E's int8 instance, cuBLASLt's
+   int8 product after an im2col (``library_ms``) and the cuDNN bf16 conv +
+   bias; the int8-static, int8-dynamic, folded-fused and unfolded forwards
+   in turns; the int8 maps' distance to a float32 forward within the JAX
+   package's int8 gates; the capacity ladder against the full-capacity
+   decode.
 
 The last lines are the kernels' JSON summary (per kernel: times, launches
 in the main path and per forward or batch, the least time the card could
@@ -904,38 +916,45 @@ def im2col_int8(x, kh, kw, stride, pad, k):
 
 
 def check_int8_case(m, x, label):
-    """Kernel E against its plain version on one conv's input and
-    weights (the act_scale of a static engine), bit for bit; and the
-    library yardstick's integer product against the exact one. Returns the
-    timing closures and the bound's (bytes, operations)."""
+    """Kernel E on one conv's own input x (bf16, quantized by E) and
+    weights (the act_scale of a static engine) against its plain version,
+    bit for bit; and the library yardstick's integer product against the
+    exact one. Returns the timing closures (E; the earlier chain: the plain
+    quantize, then E's int8 instance; cuBLASLt's int8 product on the
+    quantized input; the cuDNN bf16 conv + bias), the plain version and the
+    bound's (bytes, operations)."""
     import torch.nn.functional as F
 
-    from smap_tpu_torch.ops import kernels
     from smap_tpu_torch.ops.int8_conv import (CIN_ALIGN, int8_conv2d,
                                               int8_conv2d_plain,
+                                              int8_weight_rows,
                                               pack_int8_weights,
                                               quantize_activation)
 
     s_x = m.act_scale
-    xq = quantize_activation(x, s_x)
     packed = pack_int8_weights(m.kernel_q)
-    args = (xq, m.kernel_q, m.kernel_scale, s_x, m.bias, m.stride,
-            m.padding, m.relu, m.out_dtype)
-    got = int8_conv2d(*args, packed=packed)
-    want = int8_conv2d_plain(*args)
+    args = (m.kernel_q, m.kernel_scale, s_x, m.bias, m.stride, m.padding,
+            m.relu, m.out_dtype)
+    got = int8_conv2d(x, *args, packed=packed)
+    xq = quantize_activation(x, s_x)
+    want = int8_conv2d_plain(xq, *args)
     cout, cin, kh, kw = m.kernel_q.shape
     view = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
     if not (got.shape == want.shape and torch.equal(
             got.contiguous().view(view), want.contiguous().view(view))):
         raise AssertionError(f"int8_conv {label}: kernel E differs from its "
                              f"plain version")
+    if not torch.equal(int8_conv2d(xq, *args, packed=packed), got):
+        raise AssertionError(f"int8_conv {label}: E's int8 instance differs "
+                             f"from E on the bf16 input")
     x_nhwc = xq.permute(0, 2, 3, 1)
     if cin % CIN_ALIGN:
         x_nhwc = F.pad(x_nhwc, (0, CIN_ALIGN - cin % CIN_ALIGN))
     x_nhwc = x_nhwc.contiguous()
-    rows = -(-cout // 8) * 8                        # cuBLASLt: N % 8 == 0
-    b = F.pad(packed, (0, 0, 0, rows - cout)).t()   # [K, N], column-major
-    kpad = packed.shape[1]
+    rows = int8_weight_rows(m.kernel_q)
+    n8 = -(-cout // 8) * 8                          # cuBLASLt: N % 8 == 0
+    b = F.pad(rows, (0, 0, 0, n8 - cout)).t()       # [K, N], column-major
+    kpad = rows.shape[1]
 
     def library():
         return torch._int_mm(im2col_int8(x_nhwc, kh, kw, m.stride, m.padding,
@@ -953,48 +972,66 @@ def check_int8_case(m, x, label):
     b16 = m.bias.to(torch.bfloat16)[:, None, None]
     x16 = x.to(torch.bfloat16)
     fns = {
-        "ms": lambda: kernels.int8_conv(
-            x_nhwc, packed, m.kernel_scale, s_x, m.bias, kh=kh, kw=kw,
-            stride=m.stride, padding=m.padding, relu=m.relu,
-            out_dtype=m.out_dtype),
+        "ms": lambda: int8_conv2d(x, *args, packed=packed),
+        "chain_ms": lambda: int8_conv2d(quantize_activation(x, s_x), *args,
+                                        packed=packed),
         "library_ms": library,
         "cudnn_bf16_ms": lambda: F.conv2d(x16, w16, None, m.stride,
                                           m.padding).add_(b16)}
     n_out = got.numel()
-    nbytes = (xq.numel() + cout * kh * kw * cin + n_out * got.element_size()
-              + 2 * cout * 4)
+    nbytes = (x.numel() * x.element_size() + cout * kh * kw * cin
+              + n_out * got.element_size() + 2 * cout * 4)
     ops = 2.0 * n_out * kh * kw * cin
-    plain = (lambda: int8_conv2d_plain(*args))
+    plain = (lambda: int8_conv2d_plain(quantize_activation(x, s_x), *args))
     return fns, plain, nbytes, ops
 
 
 def int8_ragged_cases(gen, dev):
     """Kernel E bit-equal to its plain version off the forward's shapes:
-    odd H and W, Cin 3 and 8, Cout 1 and 43, stride 2, float32 out."""
-    from smap_tpu_torch.ops.int8_conv import int8_conv2d, int8_conv2d_plain
+    odd H and W, Cin 3 and 8, Cout 1, 14, 43 and 300, stride 2, float32
+    out; int8 inputs (E's int8 instance) and bf16 inputs quantized by E
+    with a scale that clips and makes ties of x / s_x."""
+    from smap_tpu_torch.ops.int8_conv import (int8_conv2d, int8_conv2d_plain,
+                                              quantize_activation)
 
     shapes = [(3, 15, 11, 3, 14, 7, 2, 3, True, torch.float32),
               (1, 13, 17, 8, 43, 3, 1, 1, False, torch.float32),
               (2, 9, 7, 64, 1, 1, 2, 0, False, torch.bfloat16),
               (2, 31, 45, 256, 1, 3, 2, 1, True, torch.bfloat16),
-              (1, 5, 5, 2048, 43, 3, 1, 1, False, torch.bfloat16)]
-    for B, H, W, cin, cout, k, stride, pad, relu, dtype in shapes:
-        xq = torch.randint(-127, 128, (B, cin, H, W), generator=gen,
-                           dtype=torch.int8).to(dev).contiguous(
-            memory_format=torch.channels_last)
-        wq = torch.randint(-127, 128, (cout, cin, k, k), generator=gen,
-                           dtype=torch.int8).to(dev)
-        args = (xq, wq, (torch.rand(cout, generator=gen) * 1e-3).to(dev),
-                torch.tensor(0.0371, device=dev),
-                torch.randn(cout, generator=gen).to(dev), stride, pad, relu,
-                dtype)
-        got, want = int8_conv2d(*args), int8_conv2d_plain(*args)
-        view = torch.int16 if dtype == torch.bfloat16 else torch.int32
-        if not torch.equal(got.contiguous().view(view),
-                           want.contiguous().view(view)):
-            raise AssertionError(f"int8_conv ragged [{B}, {H}, {W}, {cin}] "
-                                 f"-> {cout} k{k}/{stride}: differs")
-    return len(shapes)
+              (1, 5, 5, 2048, 43, 3, 1, 1, False, torch.bfloat16),
+              (2, 16, 26, 256, 300, 1, 2, 0, False, torch.bfloat16)]
+    n = 0
+    for in_dtype in (torch.int8, torch.bfloat16):
+        for B, H, W, cin, cout, k, stride, pad, relu, dtype in shapes:
+            if in_dtype == torch.int8:
+                s_x = torch.tensor(0.0371, device=dev)
+                x = torch.randint(-127, 128, (B, cin, H, W), generator=gen,
+                                  dtype=torch.int8)
+            else:
+                # (j + 1/2) 15/512 are ties of x / s_x (exact in bf16 for
+                # |j| <= 8); randn * 2 past 127 s_x clips.
+                s_x = torch.tensor(15.0 / 512.0, device=dev)
+                x = torch.randn((B, cin, H, W), generator=gen) * 2.0
+                ties = (torch.randint(-9, 9, x.shape, generator=gen)
+                        + 0.5) * (15.0 / 512.0)
+                x = torch.where(torch.rand(x.shape, generator=gen) < 0.25,
+                                ties, x).to(in_dtype)
+            x = x.to(dev).contiguous(memory_format=torch.channels_last)
+            wq = torch.randint(-127, 128, (cout, cin, k, k), generator=gen,
+                               dtype=torch.int8).to(dev)
+            args = (wq, (torch.rand(cout, generator=gen) * 1e-3).to(dev),
+                    s_x, torch.randn(cout, generator=gen).to(dev), stride,
+                    pad, relu, dtype)
+            xq = x if in_dtype == torch.int8 else quantize_activation(x, s_x)
+            got, want = int8_conv2d(x, *args), int8_conv2d_plain(xq, *args)
+            view = torch.int16 if dtype == torch.bfloat16 else torch.int32
+            if not torch.equal(got.contiguous().view(view),
+                               want.contiguous().view(view)):
+                raise AssertionError(
+                    f"int8_conv ragged {in_dtype} [{B}, {H}, {W}, {cin}] -> "
+                    f"{cout} k{k}/{stride}: differs")
+            n += 1
+    return n
 
 
 def corr(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -1005,9 +1042,11 @@ def corr(a: torch.Tensor, b: torch.Tensor) -> float:
 def phase_int8_serving(dev, card: str, batches):
     """int8 serving: the int8-static engine calibrated on the first serving
     batch (the main path: run_batch over the frames, counted), kernel E
-    against its plain version at every conv shape of its forward and at
-    ragged ones, each shape timed in turns with cuBLASLt's int8 product
-    (``library_ms``) and the cuDNN bf16 conv + bias; the forwards in turns
+    against its plain version on the forward's own bf16 input at every
+    conv shape of its forward and at ragged ones, each shape timed in turns
+    with the plain quantize + E's int8 instance (``chain_ms``), cuBLASLt's
+    int8 product on the quantized input (``library_ms``) and the cuDNN bf16
+    conv + bias; the forwards in turns
     with the int8-dynamic, folded-fused and unfolded engines; the maps'
     distance to a float32 forward; the capacity ladder against the
     full-capacity decode. Returns (E's summary row, launches)."""
@@ -1067,11 +1106,13 @@ def phase_int8_serving(dev, card: str, batches):
         raise AssertionError(f"int8: {e_forward} E launches in a forward, "
                              f"{per_forward} convs with a scale")
     n_ragged = int8_ragged_cases(torch.Generator().manual_seed(7), dev)
-    log(f"int8: kernel E bit-equal to its plain version at the "
-        f"{len(cases)} conv shapes of the forward ({e_forward} convs) and "
-        f"{n_ragged} ragged shapes; the library yardstick's int32 product "
-        f"equal to the exact one")
-    keys = ("ms", "library_ms", "cudnn_bf16_ms", "plain_ms", "bound_ms")
+    log(f"int8: kernel E bit-equal to its plain version on the forward's "
+        f"own bf16 conv inputs at its {len(cases)} conv shapes "
+        f"({e_forward} convs), its int8 instance equal to it, and at "
+        f"{n_ragged} ragged cases (int8 and bf16 inputs); the library "
+        f"yardstick's int32 product equal to the exact one")
+    keys = ("ms", "chain_ms", "library_ms", "cudnn_bf16_ms", "plain_ms",
+            "bound_ms")
     total = dict.fromkeys(keys, 0.0)
     shapes = []
     for m, x, count in cases:
@@ -1085,13 +1126,15 @@ def phase_int8_serving(dev, card: str, batches):
             total[k] += count * t[k]
         shapes.append(dict(shape=label, convs=count, **{
             k: t[k] for k in keys + ("bound_by", "share")}))
-        log(f"int8: E {label} x{count}: {t['ms']:.4f} ms, cuBLASLt int8 "
+        log(f"int8: E {label} x{count}: {t['ms']:.4f} ms, quantize + E "
+            f"int8 {t['chain_ms']:.4f}, cuBLASLt int8 "
             f"{t['library_ms']:.4f}, cuDNN bf16 {t['cudnn_bf16_ms']:.4f}, "
             f"plain {t['plain_ms']:.4f}; bound {t['bound_ms']:.4f} "
             f"({t['bound_kind']}), share {t['share']:.3f} [{card}]")
         del fns, plain
     log(f"int8: E over one forward ({e_forward} convs): {total['ms']:.3f} "
-        f"ms, cuBLASLt int8 {total['library_ms']:.3f}, cuDNN bf16 "
+        f"ms, quantize + E int8 {total['chain_ms']:.3f}, cuBLASLt int8 "
+        f"{total['library_ms']:.3f}, cuDNN bf16 "
         f"{total['cudnn_bf16_ms']:.3f}, bound {total['bound_ms']:.3f}, "
         f"share {total['bound_ms'] / total['ms']:.3f} [{card}]")
     row = dict(
@@ -1104,7 +1147,7 @@ def phase_int8_serving(dev, card: str, batches):
         bound_by=("bytes" if sum(s["bound_by"] == "bytes" for s in shapes)
                   * 2 > len(shapes) else "operations"),
         bound_kind="per shape", share=total["bound_ms"] / total["ms"],
-        library_ms=total["library_ms"],
+        library_ms=total["library_ms"], chain_ms=total["chain_ms"],
         cudnn_bf16_ms=total["cudnn_bf16_ms"], per="forward of 16 images",
         shapes=shapes)
     del cases

@@ -11,8 +11,10 @@ dynamic) at full width (``ModelConfig()``, 512x832, the same seeded weights
 and BatchNorm statistics), warms each up, and runs ``torch.profiler`` over
 3 forwards of the same batch of 16 letterboxed frames per engine. Prints,
 per engine, the device time per forward summed over the card's kernels, by
-kind (kernels C, D and E, convolutions, reductions, elementwise passes,
-...) and the ten largest kernels by name.
+kind (kernels C, D and E, convolutions, reductions, the passes of a plain
+int8 quantize, elementwise passes, ...) and the ten largest kernels by
+name. Kernel E quantizes its own input, so an int8 forward shows no
+quantize passes; the dynamic one keeps its abs-max reductions.
 
 Then the decode: ``postprocess`` (peaks, kernel A, kernel B, depth, back-
 projection) of the unfolded engine's maps of that batch of 16, the frames
@@ -47,8 +49,11 @@ KINDS = (   # first match wins
     ("convolutions (cuDNN / cuBLAS)",
      r"conv|xmma|cudnn|gemm|cutlass|nvjet|sm90_|sm80_|implicit"),
     ("reductions (the dynamic scales' abs-max)", r"reduce"),
-    ("elementwise (bias add, ReLU, residual add, int8 quantize, casts, "
-     "copies)", r"elementwise|vectorized|copy|fill"),
+    # The division and rounding passes of a plain quantize_activation (its
+    # clamp shares the ReLU's kernel, its casts count as copies below).
+    ("int8 quantize passes (x / s_x, round)", r"DivFunctor|round_kernel"),
+    ("elementwise (bias add, ReLU, residual add, scales, casts, copies)",
+     r"elementwise|vectorized|copy|fill"),
 )
 
 

@@ -5,10 +5,10 @@ the same field names and defaults for the model, post-processing, RefineNet
 and top-level bundles. It is its own module, not an import of
 ``smap_tpu.config``, so that importing the port loads nothing of the JAX
 package (``tests/test_torch_imports.py`` checks that, and
-``tests/test_torch_config.py`` checks that every value here equals its
-counterpart there). Training settings and the TPU-only knobs
-(``paf_impl``, ``paf_parts``, ``assoc_impl``, ``remat``) are left out, as
-are values nothing in the port reads.
+``tests/test_torch_convert.py::test_config_mirrors_jax_config`` checks
+that every value here equals its counterpart there). Training settings and
+the TPU-only knobs (``paf_impl``, ``paf_parts``, ``assoc_impl``,
+``remat``) are left out, as are values nothing in the port reads.
 """
 
 from __future__ import annotations

@@ -22,7 +22,6 @@ from smap_tpu_torch.ops.fused_block import (fused_bottleneck,
                                            pack_bottleneck_for_kernel)
 from smap_tpu_torch.ops.int8_conv import (act_absmax, int8_conv2d,
                                           pack_int8_weights,
-                                          quantize_activation,
                                           scale_from_absmax)
 
 # A bottleneck fuses only when its height is a multiple of this: the JAX
@@ -120,11 +119,12 @@ class Int8Conv(PackedModule):
     frozen float32 ``act_scale`` (a 0-dim tensor). Otherwise each input's
     scale is taken on the device (``ops.int8_conv.dynamic_scale``).
 
-    The input is quantized per tensor, convolved by
-    :func:`~smap_tpu_torch.ops.int8_conv.int8_conv2d` (kernel E on the card,
-    its weights packed once per weight state), dequantized, cast to
+    The input is quantized per tensor, convolved, dequantized, cast to
     ``out_dtype`` (float32 until ``to_compute_dtype`` sets it) and passed
-    through the ReLU when ``relu``.
+    through the ReLU when ``relu``, all by
+    :func:`~smap_tpu_torch.ops.int8_conv.int8_conv2d`: on the card one
+    launch of kernel E on the bf16 (or float32) input, its weights packed
+    once per weight state.
 
     ``act_scale`` is kept only when it is loaded: as in the JAX package, a
     conv that the deployment readout never runs has none after
@@ -168,10 +168,9 @@ class Int8Conv(PackedModule):
             s_x = scale_from_absmax(absmax)
         packed = (self._packed.get([self.kernel_q])[0] if x.is_cuda
                   else None)
-        return int8_conv2d(quantize_activation(x, s_x), self.kernel_q,
-                           self.kernel_scale, s_x, self.bias, self.stride,
-                           self.padding, self.relu, self.out_dtype,
-                           packed=packed)
+        return int8_conv2d(x, self.kernel_q, self.kernel_scale, s_x,
+                           self.bias, self.stride, self.padding, self.relu,
+                           self.out_dtype, packed=packed)
 
 
 def _bias(b: torch.Tensor) -> torch.Tensor:

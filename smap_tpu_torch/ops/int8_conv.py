@@ -9,10 +9,14 @@ and dequantized in the JAX package's order, each step rounded on its own:
 the ReLU if asked.
 
 On CUDA tensors :func:`int8_conv2d` launches ``int8_conv_kernel``
-(``smap_tpu_torch/csrc/int8_conv.cu``), an implicit GEMM on the int8 tensor
-cores with the dequantization, bias, cast and ReLU in its epilogue; on CPU
-tensors it runs :func:`int8_conv2d_plain`. Scales stay 0-dim tensors on
-the activations' device: nothing here waits for the device.
+(``smap_tpu_torch/csrc/int8_conv.cu``): one launch quantizes a bf16 or
+float32 input as it loads it (an int8 input is taken as already
+quantized), runs the implicit GEMM on the int8 tensor cores (``wgmma``)
+and dequantizes, adds the bias, casts and applies the ReLU in its
+epilogue. On CPU tensors it runs :func:`quantize_activation` (for a float
+input) and :func:`int8_conv2d_plain`, the plain version, to the bit. Scales
+stay 0-dim tensors on the activations' device: nothing here waits for the
+device.
 """
 
 from __future__ import annotations
@@ -30,9 +34,9 @@ from smap_tpu_torch.ops import kernels
 INV_127 = float(np.float32(1.0 / 127.0))
 # Smallest activation abs-max a scale is taken from.
 MIN_ABSMAX = 1e-6
-# Kernel E's weight rows are padded to a multiple of this many int8 values
-# (one mma.m16n8k32 step), and its input channels to a multiple of 4.
-K_ALIGN, CIN_ALIGN = 32, 4
+# Kernel E's K (taps x channels) is padded to a multiple of this many int8
+# values (one wgmma K step), and its input channels to a multiple of 4.
+K_ALIGN, CIN_ALIGN = kernels.INT8_K_STEP, 4
 
 
 def act_absmax(x: torch.Tensor) -> torch.Tensor:
@@ -92,11 +96,10 @@ def int8_conv2d_plain(xq: torch.Tensor, wq: torch.Tensor,
     return F.relu(y) if relu else y
 
 
-def pack_int8_weights(wq: torch.Tensor) -> torch.Tensor:
-    """OIHW ``[Cout, Cin, kh, kw]`` int8 -> kernel E's ``[Cout, K]`` rows:
-    element ``(dh * kw + dw) * Cin_pad + ci`` is ``wq[:, ci, dh, dw]``,
-    with Cin padded to a multiple of 4 and K to a multiple of 32 with
-    zeros."""
+def int8_weight_rows(wq: torch.Tensor) -> torch.Tensor:
+    """OIHW ``[Cout, Cin, kh, kw]`` int8 -> ``[Cout, K]`` rows: element
+    ``(dh * kw + dw) * Cin_pad + ci`` is ``wq[:, ci, dh, dw]``, with Cin
+    padded to a multiple of 4 and K to a multiple of 32 with zeros."""
     cout, cin, kh, kw = wq.shape
     cin_pad = -(-cin // CIN_ALIGN) * CIN_ALIGN
     k = kh * kw * cin_pad
@@ -109,21 +112,46 @@ def pack_int8_weights(wq: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def int8_conv2d(xq: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
+def pack_int8_weights(wq: torch.Tensor) -> torch.Tensor:
+    """OIHW ``[Cout, Cin, kh, kw]`` int8 -> kernel E's weight image, flat
+    int8 ``[Cout / N][K / 32][N][32]`` with N = ``kernels.int8_tile_n``:
+    element ``k`` of :func:`int8_weight_rows`' row ``co`` lies in block
+    ``(co // N, k // 32)``, row ``n = co % N``, at byte
+    ``n * 32 + 16 * ((k % 32) // 16 ^ (n // 4) % 2) + k % 16`` (the two
+    16-byte halves of a row swap every 4 rows: wgmma's 32-byte swizzle).
+    Rows past Cout are zero."""
+    rows = int8_weight_rows(wq)
+    cout, kpad = rows.shape
+    n = kernels.int8_tile_n(cout)
+    ntn = -(-cout // n)
+    rows = F.pad(rows, (0, 0, 0, ntn * n - cout))
+    blocks = rows.reshape(ntn, n, kpad // 32, 2, 16).permute(0, 2, 1, 3, 4)
+    swap = ((torch.arange(n, device=wq.device) // 4) % 2).bool()
+    blocks = blocks.clone()
+    blocks[:, :, swap] = blocks[:, :, swap].flip(3)
+    return blocks.reshape(-1).contiguous()
+
+
+def int8_conv2d(x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
                 s_x: torch.Tensor, bias: torch.Tensor, stride=1, padding=0,
                 relu: bool = False, out_dtype: torch.dtype = torch.float32,
                 packed: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The int8 convolution (arguments as :func:`int8_conv2d_plain`). On a
-    CPU ``xq`` it is the plain version; on a CUDA ``xq`` it launches kernel
-    E on ``packed`` (:func:`pack_int8_weights` of ``wq``, packed here when
-    not given). The output is channels-last in memory on the card."""
-    if xq.device.type == "cpu":
+    """The int8 convolution of ``x`` [B, Cin, H, W]: int8 (taken as
+    quantized with ``s_x``) or bfloat16 / float32 (quantized with ``s_x``
+    as :func:`quantize_activation` does); the other arguments as
+    :func:`int8_conv2d_plain`. On a CPU ``x`` it is the plain version,
+    after the quantize; on a CUDA ``x`` it launches kernel E on ``packed``
+    (:func:`pack_int8_weights` of ``wq``, packed here when not given),
+    which quantizes the input itself. The output is channels-last in memory
+    on the card."""
+    if x.device.type == "cpu":
+        xq = x if x.dtype == torch.int8 else quantize_activation(x, s_x)
         return int8_conv2d_plain(xq, wq, w_scale, s_x, bias, stride, padding,
                                  relu, out_dtype)
     if packed is None:
         packed = pack_int8_weights(wq)
-    cin = xq.shape[1]
-    x = xq.permute(0, 2, 3, 1)          # channels_last NCHW is NHWC
+    cin = x.shape[1]
+    x = x.permute(0, 2, 3, 1)           # channels_last NCHW is NHWC
     if cin % CIN_ALIGN:
         x = F.pad(x, (0, CIN_ALIGN - cin % CIN_ALIGN))
     (sh, sw), (ph, pw) = _pair(stride), _pair(padding)

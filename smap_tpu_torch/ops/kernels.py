@@ -47,6 +47,13 @@ MAX_WAVE_LIMBS = 8
 # Most samples per segment the PAF kernel takes (its unrolled bound).
 MAX_PAF_SAMPLES = 32
 
+# The activation types kernel E takes: quantized int8, or bf16 / float32
+# that it quantizes; its K step (int8 values) and tile widths (output
+# channels a tile: the narrowest that holds Cout, else 256).
+_INT8_CONV_INPUTS = (torch.int8, torch.bfloat16, torch.float32)
+INT8_K_STEP = 32
+INT8_TILE_N = (8, 16, 48, 64, 128, 256)
+
 # The stem kernel's output channels (a compile-time constant of the kernel)
 # and the length of its weight rows (ops/fused_stem.py, STEM_ROW).
 STEM_COUT, STEM_ROW = 64, 232
@@ -142,7 +149,7 @@ def _load() -> ctypes.CDLL:
             lib.fused_stem_launch.restype = I
             lib.fused_bottleneck_launch.argtypes = [P] * 4 + [I] * 6 + [P]
             lib.fused_bottleneck_launch.restype = I
-            lib.int8_conv_launch.argtypes = [P] * 6 + [I] * 12 + [P]
+            lib.int8_conv_launch.argtypes = [P] * 6 + [I] * 14 + [P]
             lib.int8_conv_launch.restype = I
             _lib = lib
     return _lib
@@ -358,37 +365,49 @@ def fused_bottleneck(x: torch.Tensor, packed) -> torch.Tensor:
     return out
 
 
+def int8_tile_n(cout: int) -> int:
+    """Kernel E's tile width for ``cout`` output channels."""
+    return next((n for n in INT8_TILE_N if cout <= n), INT8_TILE_N[-1])
+
+
 def int8_conv(x: torch.Tensor, packed: torch.Tensor,
               kernel_scale: torch.Tensor, s_x: torch.Tensor,
               bias: torch.Tensor, *, kh: int, kw: int, stride: int,
               padding: int, relu: bool,
               out_dtype: torch.dtype) -> torch.Tensor:
-    """``int8_conv_kernel``: one int8 convolution with its dequantization,
-    bias, cast and ReLU.
+    """``int8_conv_kernel``: one int8 convolution with the quantize of its
+    input, its dequantization, bias, cast and ReLU.
 
-    x [B, H, W, Cin] int8 NHWC, Cin a multiple of 4, 16-byte aligned;
-    packed [Cout, K] int8 (``ops.int8_conv.pack_int8_weights``), K a
-    multiple of 32 and at least kh * kw * Cin, 16-byte aligned;
-    kernel_scale and bias [Cout] float32; s_x a 0-dim float32 tensor; all
-    contiguous on one CUDA device. Returns [B, Ho, Wo, Cout] NHWC in
-    ``out_dtype`` (bfloat16 or float32).
+    x [B, H, W, Cin] NHWC, bfloat16 or float32 (quantized by the kernel
+    with ``s_x``) or int8 (already quantized), Cin a multiple of 4, 16-byte
+    aligned; packed the flat int8 weight image of
+    ``ops.int8_conv.pack_int8_weights`` for Cout = ``kernel_scale``'s
+    length and K = kh * kw * Cin, 16-byte aligned; kernel_scale and bias
+    [Cout] float32; s_x a 0-dim float32 tensor; all contiguous on one CUDA
+    device. Returns [B, Ho, Wo, Cout] NHWC in ``out_dtype`` (bfloat16 or
+    float32).
     """
-    if x.ndim != 4 or packed.ndim != 2:
-        raise ValueError("x must be [B, H, W, Cin] and packed [Cout, K]")
+    if x.ndim != 4 or packed.ndim != 1:
+        raise ValueError("x must be [B, H, W, Cin] and packed flat")
     B, H, W, cin = x.shape
-    cout, kpad = packed.shape
+    cout = kernel_scale.shape[0] if kernel_scale.ndim == 1 else 0
     dev = x.device
-    if cin % 4 or kpad % 32 or kpad < kh * kw * cin:
-        raise ValueError(f"int8_conv_kernel takes Cin a multiple of 4 and "
-                         f"rows of a multiple of 32 >= {kh} x {kw} x Cin; "
-                         f"got Cin {cin}, rows of {kpad}")
+    if x.dtype not in _INT8_CONV_INPUTS:
+        raise ValueError(f"int8_conv_kernel takes int8, bfloat16 or float32 "
+                         f"activations, not {x.dtype}")
+    if cin % 4:
+        raise ValueError(f"int8_conv_kernel takes Cin a multiple of 4, got "
+                         f"{cin}")
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"int8_conv_kernel writes bfloat16 or float32, "
                          f"not {out_dtype}")
     if stride < 1 or padding < 0:
         raise ValueError(f"stride {stride}, padding {padding}")
-    _check(x, "x", torch.int8, (B, H, W, cin), dev, align=16)
-    _check(packed, "packed", torch.int8, (cout, kpad), dev, align=16)
+    bn = int8_tile_n(cout)
+    kpad = -(-kh * kw * cin // INT8_K_STEP) * INT8_K_STEP
+    _check(x, "x", x.dtype, (B, H, W, cin), dev, align=16)
+    _check(packed, "packed", torch.int8, (-(-cout // bn) * bn * kpad,), dev,
+           align=16)
     _check(kernel_scale, "kernel_scale", torch.float32, (cout,), dev)
     _check(bias, "bias", torch.float32, (cout,), dev)
     _check(s_x, "s_x", torch.float32, (), dev)
@@ -405,8 +424,8 @@ def int8_conv(x: torch.Tensor, packed: torch.Tensor,
         err = lib.int8_conv_launch(
             x.data_ptr(), packed.data_ptr(), kernel_scale.data_ptr(),
             s_x.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H, W, cin,
-            cout, kh, kw, stride, padding, kpad, int(relu),
-            int(out_dtype == torch.float32),
+            x.element_size(), cout, kh, kw, stride, padding, kpad, bn,
+            int(relu), int(out_dtype == torch.float32),
             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "int8_conv_kernel")
     LAUNCHES["int8_conv"] += 1

@@ -338,6 +338,24 @@ def test_overflow_fallback_decodes_again_at_max_peaks():
     assert bool(plain.run_batch(_FRAME, LADDER_SCALES).overflow[0])
 
 
+def test_run_stream_with_overflow_fallback_matches_run_batch():
+    """Without the ladder, run_stream decodes each batch through run_batch,
+    so a crowded batch is decoded again at max_peaks (the JAX engine's
+    run_stream cuts it at assoc_peaks)."""
+    sequence = ["crowded", "sparse", "crowded"]
+    engine, feed = _ladder_engine(assoc_peaks=8, overflow_fallback=True)
+    feed(*sequence)
+    refs = [engine.run_batch(_FRAME, LADDER_SCALES) for _ in sequence]
+    engine, feed = _ladder_engine(assoc_peaks=8, overflow_fallback=True)
+    feed(*sequence)
+    outs = list(engine.run_stream([(_FRAME, LADDER_SCALES)] * 3))
+    assert [o.bodies_2d.shape[1] for o in outs] == [127, 8, 127]
+    for got, want, name in zip(outs, refs, sequence):
+        assert not bool(got.overflow.any())
+        _assert_same_decode(got, want)
+        _assert_same_decode(got, _full(engine, name))
+
+
 def test_engine_guards():
     from smap_tpu_torch.config import Config, ModelConfig
     from smap_tpu_torch.inference import SMAPInference

@@ -116,6 +116,51 @@ def test_int8_conv_matches_jax_conv_block(mode, cin, cout, k, stride, pad,
     assert np.all(np.abs(got - jitted) <= bound)
 
 
+@pytest.mark.parametrize("in_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mode", [True, "static"])
+@pytest.mark.parametrize("cin,cout,k,stride,pad,relu,h,w", SHAPES)
+def test_int8_conv2d_quantizes_as_jax_conv_block(in_dtype, mode, cin, cout,
+                                                 k, stride, pad, relu, h, w):
+    """The fused function as kernel E computes it (float or bf16 input and
+    the scale in, the conv out), on its plain path, bit-equal to JAX's int8
+    ConvBnRelu run op by op on the same input: the bf16 input is made by
+    one round-to-nearest-even cast of the same float32 numpy values on both
+    sides."""
+    import jax.numpy as jnp
+
+    from smap_tpu.models.layers import ConvBnRelu
+
+    from smap_tpu_torch.ops.int8_conv import dynamic_scale, int8_conv2d
+
+    seed = cin * 31 + cout + k + stride
+    x = (np.random.RandomState(seed + 1).randn(2, h, w, cin) * 3.0).astype(
+        np.float32)
+    qv = _jax_qvars(cout, k, stride, pad, relu, x, seed)
+    xj = jnp.asarray(x).astype(getattr(jnp, in_dtype))
+    xt = torch.from_numpy(x).to(getattr(torch, in_dtype))
+    np.testing.assert_array_equal(
+        np.asarray(xj.astype(jnp.float32)),
+        xt.float().numpy())               # the same input on both sides
+
+    def block(quant):
+        return ConvBnRelu(cout, (k, k), strides=(stride, stride),
+                          padding=[(pad, pad), (pad, pad)], has_relu=relu,
+                          quant=quant)
+
+    s_x = dynamic_scale(xt.permute(0, 3, 1, 2))
+    if mode == "static":
+        s_x = s_x * 0.5                    # a frozen scale that clips
+        qv = {"params": {"conv": dict(qv["params"]["conv"],
+                                      act_scale=s_x.numpy())}}
+    want = np.asarray(block(mode).apply(qv, xj, False))
+    wq, w_scale, bias = _port_weights(qv)
+    got = int8_conv2d(xt.permute(0, 3, 1, 2), wq, w_scale, s_x, bias, stride,
+                      pad, relu, torch.float32)
+    got = got.permute(0, 2, 3, 1).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+
+
 def test_int8_conv2d_on_the_cpu_is_the_plain_version():
     from smap_tpu_torch.ops.int8_conv import (int8_conv2d, int8_conv2d_plain,
                                               pack_int8_weights)
@@ -134,26 +179,67 @@ def test_int8_conv2d_on_the_cpu_is_the_plain_version():
 
 
 @pytest.mark.parametrize("cin,k", [(3, 7), (8, 3), (16, 1), (64, 3)])
-def test_pack_int8_weights_layout(cin, k):
+def test_int8_weight_rows_layout(cin, k):
     """Row co, element (dh * k + dw) * Cin_pad + ci is wq[co, ci, dh, dw];
     Cin padded to a multiple of 4, K to a multiple of 32, with zeros."""
-    from smap_tpu_torch.ops.int8_conv import pack_int8_weights
+    from smap_tpu_torch.ops.int8_conv import int8_weight_rows
 
     wq = torch.randint(-127, 128, (6, cin, k, k),
                        generator=torch.Generator().manual_seed(cin),
                        dtype=torch.int8)
-    packed = pack_int8_weights(wq)
+    rows = int8_weight_rows(wq)
     cin_pad = -(-cin // 4) * 4
-    assert packed.dtype == torch.int8 and packed.shape[0] == 6
-    assert packed.shape[1] % 32 == 0
-    assert packed.shape[1] - k * k * cin_pad in range(32)
-    want = np.zeros((6, packed.shape[1]), np.int8)
+    assert rows.dtype == torch.int8 and rows.shape[0] == 6
+    assert rows.shape[1] % 32 == 0
+    assert rows.shape[1] - k * k * cin_pad in range(32)
+    want = np.zeros((6, rows.shape[1]), np.int8)
     w = wq.numpy()
     for dh in range(k):
         for dw in range(k):
             for ci in range(cin):
                 want[:, (dh * k + dw) * cin_pad + ci] = w[:, ci, dh, dw]
-    np.testing.assert_array_equal(packed.numpy(), want)
+    np.testing.assert_array_equal(rows.numpy(), want)
+
+
+@pytest.mark.parametrize("cout,cin,k", [(1, 3, 7), (14, 8, 3), (43, 16, 1),
+                                        (64, 64, 3), (100, 4, 1),
+                                        (300, 16, 1)])
+def test_pack_int8_weights_layout(cout, cin, k):
+    """Kernel E's weight image, as csrc/int8_conv.cu's header note says:
+    (co, tap, ci) with k = tap * Cin_pad + ci lies in block (co // N,
+    k // 32), row n = co % N, byte n * 32 + 16 * ((k % 32) // 16 ^ (n // 4)
+    % 2) + k % 16; everything else is zero. N is the narrowest tile width
+    that holds Cout (8, 16, 48, 64, 128), else 256."""
+    from smap_tpu_torch.ops import kernels
+    from smap_tpu_torch.ops.int8_conv import pack_int8_weights
+
+    wq = torch.randint(-127, 128, (cout, cin, k, k),
+                       generator=torch.Generator().manual_seed(cout + cin),
+                       dtype=torch.int8)
+    wq[wq == 0] = 1                      # every real weight is nonzero
+    packed = pack_int8_weights(wq).numpy()
+    n_tile = kernels.int8_tile_n(cout)
+    assert n_tile == next(n for n in (8, 16, 48, 64, 128, 256, 10 ** 9)
+                          if cout <= n or n == 256)
+    cin_pad = -(-cin // 4) * 4
+    kpad = -(-k * k * cin_pad // 32) * 32
+    ntn = -(-cout // n_tile)
+    assert packed.dtype == np.int8 and packed.shape == (ntn * n_tile * kpad,)
+    want = np.zeros_like(packed)
+    w = wq.numpy()
+    for co in range(cout):
+        n = co % n_tile
+        for dh in range(k):
+            for dw in range(k):
+                for ci in range(cin):
+                    kk = (dh * k + dw) * cin_pad + ci
+                    block = (co // n_tile) * (kpad // 32) + kk // 32
+                    b = kk % 32
+                    at = (block * n_tile * 32 + n * 32
+                          + 16 * ((b // 16) ^ ((n // 4) % 2)) + b % 16)
+                    assert want[at] == 0
+                    want[at] = w[co, ci, dh, dw]
+    np.testing.assert_array_equal(packed, want)
 
 
 def test_quantize_activation_rounds_half_to_even_and_clips():

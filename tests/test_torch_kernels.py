@@ -347,7 +347,8 @@ INT8_SHAPES = [
                          INT8_SHAPES)
 def test_int8_conv_kernel_matches_plain(dev, B, H, W, cin, cout, k, stride,
                                         pad, relu, dtype):
-    """Kernel E bit-equal to int8_conv2d_plain on the card."""
+    """Kernel E's int8 instance (activations already quantized) bit-equal
+    to int8_conv2d_plain on the card."""
     from smap_tpu_torch.ops import kernels
     from smap_tpu_torch.ops.int8_conv import int8_conv2d, int8_conv2d_plain
 
@@ -364,6 +365,90 @@ def test_int8_conv_kernel_matches_plain(dev, B, H, W, cin, cout, k, stride,
                        want.contiguous().view(view))
 
 
+# (B, H, W, Cin, Cout, k, stride, pad, relu): the stem (Cin 3), Cin 8 and
+# 16 through the K table, 64 and 256 one tap a stage; Cout 1, 14, 43, 64,
+# 256 and 300 (two N tiles, odd stores); k 1, 3 and 7, stride 1 and 2;
+# ragged M (no multiple of 128 output pixels).
+INT8_FUSED_SHAPES = [
+    (2, 64, 96, 3, 64, 7, 2, 3, True),
+    (1, 13, 17, 8, 43, 3, 1, 1, False),
+    (3, 15, 11, 16, 14, 3, 2, 1, True),
+    (2, 32, 52, 64, 64, 1, 1, 0, True),
+    (2, 19, 23, 256, 256, 3, 1, 1, True),
+    (2, 31, 45, 256, 1, 3, 2, 1, False),
+    (2, 16, 26, 256, 300, 1, 2, 0, False),
+]
+
+
+@pytest.mark.parametrize("in_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("B,H,W,cin,cout,k,stride,pad,relu",
+                         INT8_FUSED_SHAPES)
+def test_int8_conv_kernel_quantizes_as_plain(dev, in_dtype, B, H, W, cin,
+                                             cout, k, stride, pad, relu):
+    """Kernel E on a bf16 or float32 input, quantizing it itself, bit-equal
+    to int8_conv2d_plain(quantize_activation(x, s_x), ...) on the card. The
+    scale clips the largest inputs, and an eighth of the inputs are exact
+    ties of x / s_x or next to one (where only the division decides)."""
+    from smap_tpu_torch.ops import kernels
+    from smap_tpu_torch.ops.int8_conv import (int8_conv2d, int8_conv2d_plain,
+                                              quantize_activation)
+
+    gen = torch.Generator().manual_seed(H * W + cin + cout)
+    _, wq, w_scale, _, bias = _int8_conv_inputs(gen, B, H, W, cin, cout, k,
+                                                dev)
+    # 15 / 512: (j + 1/2) s_x is exact in float32 (in bf16 for |j| <= 8),
+    # so x / s_x is a tie, and x * fl(1 / s_x) misses some of them by an
+    # ulp, on the wrong side.
+    s_x = torch.tensor(15.0 / 512.0, device=dev)
+    x = torch.randn((B, cin, H, W), generator=gen) * 2.0
+    ties = (torch.randint(-130, 130, x.shape, generator=gen) + 0.5) * (
+        15.0 / 512.0)
+    x = torch.where(torch.rand(x.shape, generator=gen) < 0.125, ties, x)
+    x = x.to(dev, in_dtype).contiguous(memory_format=torch.channels_last)
+    out_dtype = torch.bfloat16 if in_dtype == torch.bfloat16 else torch.float32
+    args = (wq, w_scale, s_x, bias, stride, pad, relu, out_dtype)
+    kernels.reset_launch_counts()
+    got = int8_conv2d(x, *args)
+    assert kernels.LAUNCHES["int8_conv"] == 1
+    xq = quantize_activation(x, s_x)
+    assert int((xq.abs() == 127).sum()) > 0            # the scale clips
+    want = int8_conv2d_plain(xq, *args)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == want.dtype == out_dtype
+    view = torch.int16 if out_dtype == torch.bfloat16 else torch.int32
+    assert torch.equal(got.contiguous().view(view),
+                       want.contiguous().view(view))
+
+
+def test_int8_forward_on_the_card_runs_no_separate_quantize(dev,
+                                                            monkeypatch):
+    """An int8 engine's forward on the card leaves the quantize of every
+    conv input to kernel E: quantize_activation is never called."""
+    from smap_tpu_torch.config import Config, ModelConfig, PostProcessConfig
+    from smap_tpu_torch.inference import SMAPInference
+    from smap_tpu_torch.models.smap import init_smap
+    from smap_tpu_torch.ops import int8_conv, kernels
+
+    mcfg = ModelConfig(stage_num=1, output_shape=(16, 24))
+    cfg = Config(model=mcfg, post=PostProcessConfig(max_peaks=31,
+                                                    assoc_peaks=8),
+                 input_shape=(64, 96), output_shape=(16, 24))
+    engine = SMAPInference(init_smap(mcfg, seed=3).state_dict(), cfg,
+                           device=dev, quantized=True)
+    frames = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 256, (2, 64, 96, 3), np.uint8)).to(dev)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("quantize_activation ran on the card")
+
+    monkeypatch.setattr(int8_conv, "quantize_activation", refuse)
+    kernels.reset_launch_counts()
+    maps = engine.forward(engine.to_device(frames))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["int8_conv"] > 0
+    assert all(bool(torch.isfinite(m).all()) for m in maps)
+
+
 def test_int8_conv_kernel_rejects_what_it_does_not_take(dev):
     from smap_tpu_torch.ops import kernels
     from smap_tpu_torch.ops.int8_conv import pack_int8_weights
@@ -376,11 +461,19 @@ def test_int8_conv_kernel_rejects_what_it_does_not_take(dev):
     kw = dict(kh=3, kw=3, stride=1, padding=1, relu=False,
               out_dtype=torch.bfloat16)
     kernels.int8_conv(x, packed, w_scale, s_x, bias, **kw)   # takes these
+    kernels.int8_conv(x.bfloat16(), packed, w_scale, s_x, bias, **kw)
+    kernels.int8_conv(x.float(), packed, w_scale, s_x, bias, **kw)
     for bad in ((x[..., :6].contiguous(), packed, w_scale, s_x, bias),
+                (x.bfloat16()[..., :6].contiguous(), packed, w_scale, s_x,
+                 bias),
                 (x, wq.reshape(8, -1), w_scale, s_x, bias),
+                (x, packed[:-16], w_scale, s_x, bias),
+                (x, packed, w_scale[:7].contiguous(), s_x, bias),
                 (x, packed, w_scale, s_x.cpu(), bias),
                 (x, packed, w_scale.bfloat16(), s_x, bias),
-                (x.float(), packed, w_scale, s_x, bias)):
+                (x.double(), packed, w_scale, s_x, bias),
+                (x.half(), packed, w_scale, s_x, bias),
+                (x.bfloat16()[:, :, 1:], packed, w_scale, s_x, bias)):
         with pytest.raises(ValueError):
             kernels.int8_conv(*bad, **kw)
     with pytest.raises(ValueError):
