@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on a CUDA card.
+"""Drive the PyTorch port's serving and training paths once on a CUDA
+card.
 
     python3 chip_smoke.py          # from the repository root, one card
 
@@ -51,6 +52,25 @@ exits non-zero with no result line):
    in turns; the int8 maps' distance to a float32 forward within the JAX
    package's int8 gates; the capacity ladder against the full-capacity
    decode.
+8. training (no kernel of A-E on its path; the phase checks that none
+   launched): ``Trainer.fit`` at full width (``Config()``: 512x832,
+   3 stages, bf16 compute on float32 parameters, ``TrainConfig()``) on
+   seeded batches of ``TRAIN_BATCH`` (normalized images, 1-6 people a
+   sample), ``TRAIN_WARMUP`` steps then ``TRAIN_STEPS`` timed: each
+   step's four losses (finite, total > 0) from ``metrics.jsonl``, ms a
+   step, img/s, the label render's ms and peak memory; from one state,
+   bf16 steps with and without ``remat`` under PyTorch's deterministic
+   algorithms (the same losses, statistics and gradients, lower peak,
+   statistics moved once), two bf16 steps without them (their spread) and
+   a float32 step (the bf16 gradient's distance to it); one with
+   ``grad_accum_steps=2``; a fresh
+   ``Trainer`` restored from the checkpoint at step ``TRAIN_WARMUP``
+   continuing to the logged loss of the next step; one step of a small
+   config (1 stage, 64x96, float32, TF32 off) on the card against the same
+   step on the CPU and a float64 CPU step (labels, losses, gradients,
+   statistics); ``DESCENT_STEPS`` steps on one batch at 32x48, in float32
+   and in bf16 compute (loss first / last > 2 each); ``train_refinenet`` at batch 1024 (the MSE falls,
+   ``select_best_epoch`` picks an epoch).
 
 The last lines are the kernels' JSON summary (per kernel: times, launches
 in the main path and per forward or batch, the least time the card could
@@ -63,6 +83,7 @@ no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -107,6 +128,39 @@ INT8_OPS = 1979e12
 INT8_REL = (0.08, 0.08, 0.25)
 INT8_CORR = 0.98
 LADDER = (8, 16, 40)
+# Phase 8 (training). Full width: TrainConfig() defaults at batch
+# TRAIN_BATCH (four times the reference's 2 a GPU), TRAIN_WARMUP steps
+# then TRAIN_STEPS timed.
+TRAIN_BATCH = 8
+TRAIN_WARMUP = 2
+TRAIN_STEPS = 5
+# remat against no remat, one bf16 step from the same state with PyTorch's
+# deterministic algorithms on, so that every sum has one order: the same
+# losses and running statistics (rtol 1e-4) and gradients (1e-6 relative
+# in the 2-norm) (training_options).
+REMAT_RTOL, REMAT_GRAD = 1e-4, 1e-6
+# The bf16 step's gradient against a float32 step from the same state with
+# every bottleneck's last BatchNorm scale times 0.1 (where float32 is well
+# conditioned): it must point along it; an unrelated gradient of the same
+# norm lies ~1.4 away (tests/test_torch_train_bf16.py holds bf16 to the
+# JAX package's bf16 on the CPU).
+BF16_DAMPED_GRAD = 1.0
+# The resumed run's next loss: the same state and batch, the same kernels.
+RESUME_RTOL = 1e-4
+# Card against CPU (small config, float32, TF32 off). Labels: sums of the
+# same terms in the same order, but the PAF means over persons reduce in
+# another order (<= 1 ulp at 127). Losses as tests/test_torch_train_step.py
+# holds the port to JAX. Gradients and statistics: BatchNorm by the batch
+# amplifies float32 rounding ~1e4-fold at these shapes, so both runs are
+# held to a float64 CPU step; the card's distance to it may be CARD_NOISE
+# times the CPU float32 step's (the JAX package's float32 CPU steps sit
+# 2-4x farther than the port's, tests/test_torch_train_step.py).
+LABEL_ATOL = 1e-5
+CARD_LOSS_RTOL = {"total_loss": 1e-4, "loss_2d": 1e-4, "loss_bone": 1e-4,
+                  "loss_root": 1e-2}
+CARD_NOISE = 4.0
+DESCENT_STEPS = 220
+REFINE_PAIRS, REFINE_EPOCHS = 16384, 5
 
 
 def log(msg: str) -> None:
@@ -1244,6 +1298,427 @@ def phase_int8_serving(dev, card: str, batches):
     return row, launches
 
 
+def train_batch(rng: np.random.RandomState, gen: torch.Generator, cfg,
+                batch: int, dev):
+    """A training batch from seeds, as tests/test_train_step.py's _batch
+    builds one: normalized images (made on the card), 1-6 people a sample
+    with skeletons on the map (the rest of the ``max_people`` rows
+    unlabeled), every channel valid, scale 0.5."""
+    from smap_tpu_torch.train.step import TrainBatch
+
+    h, w = cfg.input_shape
+    p = cfg.train.max_people
+    bodys = np.zeros((batch, p, 15, 11), np.float32)
+    bodys[..., 0] = rng.uniform(0, w - 1, bodys.shape[:3])
+    bodys[..., 1] = rng.uniform(0, h - 1, bodys.shape[:3])
+    bodys[..., 2] = rng.uniform(100, 400, bodys.shape[:3])
+    bodys[..., 3] = rng.randint(0, 3, bodys.shape[:3])
+    bodys[..., 7] = 1100.0
+    people = rng.randint(1, 7, batch)
+    bodys[np.arange(p)[None, :] >= people[:, None], :, 3] = 0
+    images = torch.randn((batch, h, w, 3), generator=gen, device=dev)
+    return TrainBatch(images=images, bodys=torch.from_numpy(bodys).to(dev),
+                      valids=torch.ones((batch, 57), device=dev),
+                      scales=torch.full((batch,), 0.5, device=dev))
+
+
+def losses_ok(losses: dict, label: str) -> dict:
+    values = {k: float(v) for k, v in losses.items()}
+    if not all(np.isfinite(v) for v in values.values()) or not (
+            values["total_loss"] > 0):
+        raise AssertionError(f"{label}: losses {values}")
+    return values
+
+
+def fmt(values: dict) -> str:
+    return ", ".join(f"{k} {v:.4f}" for k, v in values.items())
+
+
+def grad_vector(model) -> torch.Tensor:
+    return torch.cat([p.grad.double().flatten() for p in model.parameters()])
+
+
+def stats_vector(model) -> torch.Tensor:
+    return torch.cat([v.double().flatten() for k, v in
+                      model.state_dict().items() if "running_" in k])
+
+
+def dist(a: torch.Tensor, b: torch.Tensor) -> float:
+    """|a - b| / |b| in the 2-norm, on the host in float64."""
+    a, b = a.double().cpu(), b.double().cpu()
+    return float((a - b).norm() / (b.norm() + 1e-30))
+
+
+@contextlib.contextmanager
+def deterministic(on: bool):
+    """PyTorch's deterministic algorithms (and cuDNN's) inside the block
+    when ``on``; an op with no deterministic version warns."""
+    if not on:
+        yield
+        return
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+
+@contextlib.contextmanager
+def resize_in_float32(on: bool):
+    """The model's bilinear resizes in float32 (forward and backward),
+    cast back to the input's dtype, inside the block when ``on``."""
+    if not on:
+        yield
+        return
+    import smap_tpu_torch.models.smap as msmap
+
+    plain = msmap.resize_bilinear
+    msmap.resize_bilinear = lambda x, hw: plain(x.float(), hw).to(x.dtype)
+    try:
+        yield
+    finally:
+        msmap.resize_bilinear = plain
+
+
+def cuda_peak(fn):
+    """(fn()'s result, peak device memory in GB during it)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() / 1e9
+
+
+def training_full_width(dev, card: str):
+    """Trainer.fit at full width: TRAIN_WARMUP steps, then TRAIN_STEPS
+    timed; each step's losses from metrics.jsonl. Returns what the option
+    checks reuse."""
+    import tempfile
+
+    from smap_tpu_torch.config import Config
+    from smap_tpu_torch.train.engine import Trainer, TrainerConfig
+    from smap_tpu_torch.train.step import render_labels
+
+    cfg = Config()
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    rng, gen = np.random.RandomState(0), torch.Generator(dev).manual_seed(0)
+    n = TRAIN_WARMUP + TRAIN_STEPS
+    batches = [train_batch(rng, gen, cfg, TRAIN_BATCH, dev) for _ in range(n)]
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, TrainerConfig(output_dir=out_dir, log_every=1,
+                                         seed=0), device=dev)
+    state = trainer.init_state(0)
+    log(f"training: Trainer up in {time.perf_counter() - t0:.2f} s "
+        f"(ModelConfig() {cfg.input_shape[0]}x{cfg.input_shape[1]}, "
+        f"{cfg.model.compute_dtype} compute on float32 parameters, "
+        f"TrainConfig(), batch {TRAIN_BATCH}, "
+        f"{sum(p.numel() for p in state.model.parameters())} parameters)")
+    state = trainer.fit(enumerate(batches[:TRAIN_WARMUP]), state=state,
+                        max_steps=TRAIN_WARMUP)      # checkpoints at its end
+    # The timed steps end with the iterator, before max_steps: no
+    # checkpoint inside them. The checkpoint is timed apart.
+    t0 = time.perf_counter()
+    state, peak = cuda_peak(lambda: trainer.fit(
+        ((i, batches[i]) for i in range(TRAIN_WARMUP, n)), state=state,
+        max_steps=n + 1))
+    ms = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+    t0 = time.perf_counter()
+    trainer.ckpt.save(n, state)
+    save_ms = (time.perf_counter() - t0) * 1e3
+    with open(os.path.join(out_dir, "tb_dir", "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    if [r["step"] for r in records] != list(range(1, n + 1)):
+        raise AssertionError(f"metrics.jsonl steps "
+                             f"{[r['step'] for r in records]}")
+    for r in records:
+        values = losses_ok({k: r[k] for k in ("total_loss", "loss_2d",
+                                              "loss_bone", "loss_root")},
+                           f"training step {r['step']}")
+        log(f"training: step {r['step']}: {fmt(values)}")
+    if trainer.ckpt.all_steps() != [TRAIN_WARMUP, n]:
+        raise AssertionError(f"checkpoints {trainer.ckpt.all_steps()}")
+    trainer.close()
+    render_ms = cuda_ms(lambda: render_labels(batches[0], cfg=cfg), 5)
+    log(f"training: {ms:.2f} ms a step over {TRAIN_STEPS} steps of "
+        f"Trainer.fit (host clock, each step's losses read back), "
+        f"{TRAIN_BATCH * 1e3 / ms:.1f} img/s; label render "
+        f"{render_ms:.3f} ms a step (CUDA events); checkpoint save "
+        f"{save_ms:.0f} ms (torch.save of model, Adam and schedule); peak "
+        f"memory {peak:.2f} GB (torch.cuda.max_memory_allocated) [{card}]")
+    return cfg, out_dir, batches, state, records
+
+
+def training_options(dev, card: str, cfg, out_dir, batches, state,
+                     records) -> None:
+    """remat, accumulation and checkpoint resume at full width."""
+    import copy
+    import dataclasses
+
+    from smap_tpu_torch.train.engine import Trainer, TrainerConfig
+    from smap_tpu_torch.train.step import train_step
+
+    # From one state: bf16 steps without and with remat under PyTorch's
+    # deterministic algorithms; two bf16 steps with its default kernels
+    # (some backward passes sum with atomics, in another order each run,
+    # and the freshly initialised network amplifies that) and a float32
+    # step (TF32 off). Then bf16 and float32 steps from that state with
+    # every bottleneck's last BatchNorm scale times 0.1, where float32 is
+    # well conditioned, and the bf16 one once more with the bilinear
+    # resizes in float32.
+    sd = copy.deepcopy(state.model.state_dict())
+    del state
+    damped = {k: v * 0.1 if k.endswith("conv_bn_relu3.bn.weight") else v
+              for k, v in sd.items()}
+    runs = {}
+    for key, weights, dtype, remat, det, resize32 in (
+            ("plain", sd, "bfloat16", False, True, False),
+            ("remat", sd, "bfloat16", True, True, False),
+            ("default a", sd, "bfloat16", False, False, False),
+            ("default b", sd, "bfloat16", False, False, False),
+            ("float32", sd, "float32", False, False, False),
+            ("damped bf16", damped, "bfloat16", False, False, False),
+            ("damped bf16, resize f32", damped, "bfloat16", False, False,
+             True),
+            ("damped float32", damped, "float32", False, False, False)):
+        c = dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, compute_dtype=dtype, remat=remat))
+        trainer = Trainer(c, TrainerConfig(output_dir=out_dir), device=dev)
+        st = trainer.init_state(0)
+        trainer.close()
+        st.model.load_state_dict(weights)
+        with deterministic(det), resize_in_float32(resize32):
+            (st, losses), peak = cuda_peak(
+                lambda: train_step(st, batches[0], cfg=c))
+        runs[key] = (losses_ok(losses, key), peak, grad_vector(st.model).cpu(),
+                     stats_vector(st.model).cpu(),
+                     [int(v) - int(sd[k]) for k, v in
+                      st.model.state_dict().items() if "num_batches" in k])
+        del st
+    (l0, p0, g0, s0, _), (l1, p1, g1, s1, tracked) = (runs["plain"],
+                                                      runs["remat"])
+    loss_d = max(abs(l1[k] - l0[k]) / abs(l0[k]) for k in l0)
+    log(f"training: remat (deterministic algorithms): {fmt(l1)} vs "
+        f"{fmt(l0)} (max rel {loss_d:.2e}), gradients |d| / |g| "
+        f"{dist(g1, g0):.2e}, running statistics {dist(s1, s0):.2e}, "
+        f"updates counted {set(tracked)}; peak memory {p1:.2f} GB against "
+        f"{p0:.2f} GB without [{card}]")
+    lf, gf = runs["float32"][0], runs["float32"][2]
+    g32 = runs["damped float32"][2]
+    to32 = {k: dist(runs[k][2], g32) for k in ("damped bf16",
+                                                "damped bf16, resize f32")}
+    log(f"training: gradients |d| / |g|: two bf16 runs with the default "
+        f"kernels {dist(runs['default b'][2], runs['default a'][2]):.2e}; "
+        f"bf16 (deterministic) against float32 from the same state "
+        f"{dist(g0, gf):.2e} (losses rel " + ", ".join(
+            f"{k} {abs(l0[k] - lf[k]) / abs(lf[k]):.2e}" for k in lf) +
+        f"); damped, bf16 against float32 {to32['damped bf16']:.2e}, with "
+        f"the resizes in float32 {to32['damped bf16, resize f32']:.2e} "
+        f"[{card}]")
+    if not (loss_d < REMAT_RTOL and dist(s1, s0) < REMAT_RTOL
+            and dist(g1, g0) <= REMAT_GRAD and set(tracked) == {1}
+            and p1 < p0):
+        raise AssertionError("remat does not reproduce the step")
+    if not to32["damped bf16"] < BF16_DAMPED_GRAD:
+        raise AssertionError("the bf16 gradient is not the float32 one's")
+    del runs, g0, g1, gf, g32
+
+    # Accumulation: one step of the batch as two microbatches.
+    trainer = Trainer(cfg, TrainerConfig(output_dir=out_dir), device=dev)
+    st = trainer.init_state(0)
+    trainer.close()
+    st.model.load_state_dict(sd)
+    t0 = time.perf_counter()
+    (st, losses), peak = cuda_peak(
+        lambda: train_step(st, batches[0], cfg=cfg, accum_steps=2))
+    ms = (time.perf_counter() - t0) * 1e3
+    values = losses_ok(losses, "accumulation")
+    log(f"training: grad_accum_steps=2: {fmt(values)}; {ms:.1f} ms "
+        f"(first call), peak memory {peak:.2f} GB [{card}]")
+    del st
+
+    # Resume: a fresh Trainer restored at step TRAIN_WARMUP takes the next
+    # step to the loss the uninterrupted run logged.
+    trainer = Trainer(cfg, TrainerConfig(output_dir=out_dir, log_every=1),
+                      device=dev)
+    st = trainer.ckpt.restore(trainer.init_state(0), step=TRAIN_WARMUP)
+    st = trainer.fit(iter([(TRAIN_WARMUP, batches[TRAIN_WARMUP])]),
+                     state=st, max_steps=TRAIN_WARMUP + 1)
+    trainer.close()
+    with open(os.path.join(out_dir, "tb_dir", "metrics.jsonl")) as f:
+        got = json.loads(f.readlines()[-1])
+    want = records[TRAIN_WARMUP]
+    d = abs(got["total_loss"] - want["total_loss"]) / want["total_loss"]
+    log(f"training: resumed at step {TRAIN_WARMUP}, step {got['step']}: "
+        f"total_loss {got['total_loss']:.4f} vs {want['total_loss']:.4f} "
+        f"uninterrupted (rel {d:.2e})")
+    if got["step"] != want["step"] or st.step != TRAIN_WARMUP + 1 or not (
+            d < RESUME_RTOL):
+        raise AssertionError("the resumed run does not continue the run")
+
+
+def small_train_cfg(input_shape=(64, 96), **train):
+    """One stage, float32 (tests/test_train_step.py's _tiny_cfg), 4 people
+    rows."""
+    from smap_tpu_torch.config import Config, ModelConfig, TrainConfig
+
+    out = (input_shape[0] // 4, input_shape[1] // 4)
+    return Config(model=ModelConfig(stage_num=1, output_shape=out,
+                                    compute_dtype="float32"),
+                  train=TrainConfig(max_people=4, **train),
+                  input_shape=input_shape, output_shape=out)
+
+
+def training_card_vs_cpu(dev, card: str) -> None:
+    """One step of the small config on the card and on the CPU from the
+    same weights and batch, TF32 off: labels within LABEL_ATOL; loss,
+    gradients and running statistics against a float64 CPU step."""
+    from smap_tpu_torch.models.smap import init_smap
+    from smap_tpu_torch.train.step import (TrainBatch, create_train_state,
+                                           render_labels, train_step,
+                                           training_model)
+
+    cfg = small_train_cfg()
+    batch = train_batch(np.random.RandomState(1),
+                        torch.Generator().manual_seed(1), cfg, 2, "cpu")
+    cpu = torch.device("cpu")
+    labels = {d: render_labels(TrainBatch(*(x.to(d) for x in batch)),
+                               cfg=cfg) for d in (dev, cpu)}
+    label_err = max(float((a.cpu() - b).abs().max()) for a, b in
+                    zip(labels[dev], labels[cpu]))
+    sd = init_smap(cfg.model, seed=2).state_dict()
+    got = {}
+    for name, d, dtype in (("card", dev, torch.float32),
+                           ("cpu", cpu, torch.float32),
+                           ("cpu64", cpu, torch.float64)):
+        model = init_smap(cfg.model, seed=2)
+        model.load_state_dict(sd)
+        model = training_model(model, d)
+        if dtype == torch.float64:
+            model.double().compute_dtype = torch.float64
+        st, losses = train_step(create_train_state(model, cfg),
+                                TrainBatch(*(x.to(d) for x in batch)),
+                                cfg=cfg)
+        got[name] = (losses_ok(losses, f"small {name}"),
+                     grad_vector(st.model).cpu(), stats_vector(st.model).cpu())
+    (lc, gc, sc), (l32, g32, s32), (_, g64, s64) = (
+        got["card"], got["cpu"], got["cpu64"])
+    loss_d = {k: abs(lc[k] - l32[k]) / abs(l32[k]) for k in lc}
+    e = {"gradients": (dist(gc, g64), dist(g32, g64)),
+         "statistics": (dist(sc, s64), dist(s32, s64))}
+    log(f"training: card vs CPU (1 stage, 64x96, float32, TF32 off): labels "
+        f"max |d| {label_err:.2e}; losses rel "
+        f"{', '.join(f'{k} {v:.2e}' for k, v in loss_d.items())}; distance "
+        f"to the float64 CPU step, card / CPU: " + ", ".join(
+            f"{k} {a:.2e} / {b:.2e}" for k, (a, b) in e.items()))
+    if not (label_err <= LABEL_ATOL
+            and all(v < CARD_LOSS_RTOL[k] for k, v in loss_d.items())
+            and all(a <= CARD_NOISE * b + 1e-6 for a, b in e.values())):
+        raise AssertionError("the card's step is not the CPU's")
+
+
+def training_descent(dev, card: str) -> None:
+    """DESCENT_STEPS steps on one memorizable batch of 2 at 32x48
+    (tests/test_train_step.py's descent test: lr 0.1, warmup 1, constant
+    depth), in float32 and in bf16 compute: total_loss first / last > 2
+    in each."""
+    import dataclasses
+
+    from smap_tpu_torch.models.smap import init_smap
+    from smap_tpu_torch.train.step import (create_train_state, train_step,
+                                           training_model)
+
+    small = small_train_cfg((32, 48), base_lr=0.1, warmup_iters=1)
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(small, model=dataclasses.replace(
+            small.model, compute_dtype=dtype))
+        batch = train_batch(np.random.RandomState(3),
+                            torch.Generator(dev).manual_seed(3), cfg, 2, dev)
+        batch.bodys[..., 2] = 200.0
+        st = create_train_state(training_model(init_smap(cfg.model, seed=3),
+                                               dev), cfg)
+        curve = []
+        t0 = time.perf_counter()
+        for _ in range(DESCENT_STEPS):
+            st, losses = train_step(st, batch, cfg=cfg)
+            curve.append(losses)
+        curve = [losses_ok(x, f"descent {dtype}") for x in curve]
+        dt = (time.perf_counter() - t0) * 1e3 / DESCENT_STEPS
+        first, last = curve[0]["total_loss"], curve[-1]["total_loss"]
+        log(f"training: descent on one batch, {dtype}, {DESCENT_STEPS} "
+            f"steps: total_loss {first:.2f} -> {last:.2f} "
+            f"(x{first / last:.2f}); last {fmt(curve[-1])}; {dt:.2f} ms a "
+            f"step")
+        if not first / last > 2.0:
+            raise AssertionError(f"training does not descend in {dtype}")
+
+
+def training_refinenet(dev, card: str) -> None:
+    """train_refinenet on REFINE_PAIRS seeded pairs at batch 1024 for
+    REFINE_EPOCHS epochs: the training-set MSE of each epoch's snapshot
+    falls, and select_best_epoch picks one of them."""
+    import tempfile
+
+    from smap_tpu_torch.config import RefineNetConfig
+    from smap_tpu_torch.data.datasets import P2PDataset
+    from smap_tpu_torch.train.refine import (pair_arrays,
+                                             select_best_epoch,
+                                             train_refinenet)
+
+    rng = np.random.RandomState(4)
+    gt = rng.randn(REFINE_PAIRS, 15, 3) * 30 + [0.0, 0.0, 400.0]
+    pred = np.concatenate([gt + rng.randn(REFINE_PAIRS, 15, 3) * 5,
+                           rng.randint(0, 2, (REFINE_PAIRS, 15, 1))], -1)
+    pred_2d = gt[..., :2] / gt[..., 2:] * 1000 + 400
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_p2p_"),
+                        "pairs.json")
+    with open(path, "w") as f:
+        json.dump({"3d_pairs": [
+            {"pred_3d": p.tolist(), "pred_2d": q.tolist(),
+             "gt_3d": g.tolist()} for p, q, g in zip(pred, pred_2d, gt)]}, f)
+    dataset = P2PDataset(path)
+    cfg = RefineNetConfig(num_epochs=REFINE_EPOCHS)
+    lines = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    snaps = train_refinenet(dataset, cfg, seed=0, log_fn=lines.append,
+                            device=dev)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / REFINE_EPOCHS
+    inputs, targets = (torch.from_numpy(a).to(dev) for a in pair_arrays(dataset))
+    with torch.no_grad():
+        mse = [float(((m(inputs) - targets) ** 2).mean())
+               for m in snaps.values()]
+    best, err = select_best_epoch(snaps, dataset)
+    log(f"training: RefineNet, {REFINE_PAIRS} pairs, batch "
+        f"{cfg.batch_size}, {REFINE_EPOCHS} epochs ({ms:.1f} ms an epoch): "
+        f"training MSE of each epoch's snapshot "
+        f"{', '.join(f'{x:.2f}' for x in mse)}; best epoch {best}, mean "
+        f"per-joint error {err:.3f} cm")
+    if not (mse[-1] < mse[0] and best in snaps and np.isfinite(err)):
+        raise AssertionError("RefineNet training does not reduce the MSE")
+
+
+def phase_training(dev, card: str) -> None:
+    """Phase 8: the training path (no kernel of A-E on it)."""
+    from smap_tpu_torch.ops import kernels
+
+    kernels.reset_launch_counts()
+    state_etc = training_full_width(dev, card)
+    training_options(dev, card, *state_etc)
+    del state_etc
+    training_card_vs_cpu(dev, card)
+    training_descent(dev, card)
+    training_refinenet(dev, card)
+    launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    log(f"training: kernels A-E launched by the training phase: "
+        f"{launched or 'none'}")
+    if launched:
+        raise AssertionError("the training path launched a serving kernel")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script needs "
@@ -1286,6 +1761,7 @@ def main() -> int:
     int8_row["launches"] = launches["int8_conv"]
     int8_row["launches_per_forward"] = launches["int8_conv"] / len(batches)
     rows["int8_conv"] = int8_row
+    phase_training(dev, card)
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_per_forward", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "bound_kind", "share", "library_ms")

@@ -24,8 +24,16 @@ device ms and kernels per decode by kind, the device's idle share of
 each decode's window (from the decode's start on the host to the end of
 its last kernel), and the device kernels, copies and fills that one
 ``associate`` call on the decode's own inputs puts on the card (profiled
-apart, 3 calls). Last, the card's name and power limit. Needs the card:
-without one it exits non-zero.
+apart, 3 calls).
+
+Then one training step at full width (``ModelConfig()``, bf16 compute on
+float32 parameters, ``TrainConfig()``, ``chip_smoke.TRAIN_BATCH`` images
+from ``chip_smoke.train_batch``), as ``train.step.train_step`` runs it,
+in four ranges each ended by a synchronize: label render, forward + loss,
+backward, optimizer (Adam and the schedule). From ``torch.profiler`` over
+3 steps after 2 warm-up steps: device ms per step of each range by kernel
+kind, and each range's host ms. Last, the card's name and power limit.
+Needs the card: without one it exits non-zero.
 """
 
 from __future__ import annotations
@@ -35,6 +43,7 @@ import re
 import sys
 import time
 
+import numpy as np
 import torch
 
 FORWARDS = 3
@@ -54,6 +63,22 @@ KINDS = (   # first match wins
     ("int8 quantize passes (x / s_x, round)", r"DivFunctor|round_kernel"),
     ("elementwise (bias add, ReLU, residual add, scales, casts, copies)",
      r"elementwise|vectorized|copy|fill"),
+)
+
+
+TRAIN_STEPS = 3
+TRAIN_RANGES = ("labels", "forward", "backward", "optimizer")
+TRAIN_KINDS = (   # first match wins
+    ("BatchNorm", r"batch_norm|bn_"),
+    ("bilinear upsampling", r"upsample|bilinear"),
+    ("max-pool", r"max_pool"),
+    ("convolutions (cuDNN / cuBLAS)",
+     r"conv|xmma|cudnn|gemm|cutlass|nvjet|sm90_|sm80_|implicit|wgrad|dgrad"),
+    ("reductions", r"reduce"),
+    ("Adam (multi-tensor)", r"multi_tensor|foreach|adam"),
+    ("index / gather / scatter / sort", r"index|gather|scatter|sort|radix"),
+    ("elementwise (casts, copies, fills, ...)",
+     r"elementwise|vectorized|unrolled|copy|fill|memcpy|memset"),
 )
 
 
@@ -186,6 +211,86 @@ def profile_decode(engine, frames, scales, card: str) -> None:
               f"launches  {name[:100]}")
 
 
+def profile_training(card: str) -> None:
+    """Device ms by range and kernel kind of one full-width train step."""
+    from torch.autograd import DeviceType
+
+    from chip_smoke import TRAIN_BATCH, train_batch
+    from smap_tpu_torch.config import Config
+    from smap_tpu_torch.losses import smap_loss
+    from smap_tpu_torch.models.smap import init_smap
+    from smap_tpu_torch.train.step import (create_train_state,
+                                           render_labels, training_model)
+
+    cfg = Config()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    batch = train_batch(np.random.RandomState(0),
+                        torch.Generator(dev).manual_seed(0), cfg,
+                        TRAIN_BATCH, dev)
+    state = create_train_state(
+        training_model(init_smap(cfg.model, seed=0), dev), cfg)
+    model, opt = state.model, state.optimizer
+
+    def step(ranges):
+        """train_step_with_labels, in four synchronized ranges."""
+        def timed(name, fn):
+            t0 = time.perf_counter()
+            with torch.profiler.record_function(name):
+                out = fn()
+                torch.cuda.synchronize()
+            ranges[name].append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        labels, rdepth = timed("labels", lambda: render_labels(batch,
+                                                               cfg=cfg))
+        opt.zero_grad(set_to_none=True)
+        losses = timed("forward", lambda: smap_loss(
+            model(batch.images), batch.valids, labels, rdepth, cfg.train))
+        timed("backward", lambda: losses["total_loss"].backward())
+        timed("optimizer", lambda: (opt.step(), state.scheduler.step()))
+
+    warm = collections.defaultdict(list)
+    for _ in range(2):
+        step(warm)
+    host = collections.defaultdict(list)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(TRAIN_STEPS):
+            step(host)
+    events = prof.events()
+    windows = sorted((e.time_range.start, e.time_range.end, e.name)
+                     for e in events if e.name in TRAIN_RANGES
+                     and e.device_type == DeviceType.CPU)
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA
+               and e.name not in TRAIN_RANGES]
+    by = {r: collections.defaultdict(lambda: [0.0, 0]) for r in TRAIN_RANGES}
+    for e in kernels:
+        for start, end, name in windows:
+            if start <= e.time_range.start < end:
+                kind = by[name][kind_of(e.name, TRAIN_KINDS)]
+                kind[0] += e.time_range.elapsed_us()
+                kind[1] += 1
+                break
+    total = sum(us for r in by.values() for us, _ in r.values())
+    print(f"training step: {total / TRAIN_STEPS / 1e3:.3f} device ms per "
+          f"step at batch {TRAIN_BATCH} (ModelConfig() "
+          f"{cfg.input_shape[0]}x{cfg.input_shape[1]}, "
+          f"{cfg.model.compute_dtype}; torch.profiler, mean of "
+          f"{TRAIN_STEPS} steps, each range ended by a synchronize) "
+          f"[{card}]")
+    for name in TRAIN_RANGES:
+        us = sum(v[0] for v in by[name].values())
+        n = sum(v[1] for v in by[name].values())
+        print(f"  {name}: {us / TRAIN_STEPS / 1e3:.3f} device ms in "
+              f"{n / TRAIN_STEPS:.0f} kernels; host "
+              f"{np.mean(host[name]):.3f} ms (synchronized, profiler on)")
+        for kind, (k_us, k_n) in sorted(by[name].items(),
+                                        key=lambda kv: -kv[1][0]):
+            print(f"    {k_us / TRAIN_STEPS / 1e3:8.3f} ms  "
+                  f"{k_n / TRAIN_STEPS:5.0f} launches  {kind}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profile_forward: torch.cuda is not available; this script "
@@ -245,6 +350,8 @@ def main() -> int:
                             device="cuda")
     with torch.no_grad():
         profile_decode(decoder, frames, scales, card)
+    del engines, decoder
+    profile_training(card)
     print(card)
     return 0
 

@@ -1,14 +1,18 @@
-"""Serving configuration of the PyTorch port.
+"""Configuration of the PyTorch port.
 
-The serving half of ``smap_tpu/config.py``: the same skeleton constants and
-the same field names and defaults for the model, post-processing, RefineNet
-and top-level bundles. It is its own module, not an import of
+``smap_tpu/config.py`` again: the same skeleton constants and the same
+field names and defaults for the model, post-processing, training,
+RefineNet and top-level bundles. It is its own module, not an import of
 ``smap_tpu.config``, so that importing the port loads nothing of the JAX
 package (``tests/test_torch_imports.py`` checks that, and
 ``tests/test_torch_convert.py::test_config_mirrors_jax_config`` checks
-that every value here equals its counterpart there). Training settings and
-the TPU-only knobs (``paf_impl``, ``paf_parts``, ``assoc_impl``,
-``remat``) are left out, as are values nothing in the port reads.
+that every value here equals its counterpart there). The TPU-only knobs
+(``paf_impl``, ``paf_parts``, ``assoc_impl``, ``flatten_opt``) are left
+out, as are values nothing in the port reads, but for ``TrainConfig``'s
+host augmentation fields: they are kept so that a ``TrainConfig`` carries
+over from the JAX package whole, and nothing in the port reads them yet
+(the augmentation pipeline is not ported; ``Trainer.fit`` takes batches
+augmented already).
 """
 
 from __future__ import annotations
@@ -78,6 +82,9 @@ class ModelConfig:
     # each input; "static": the same with frozen activation scales
     # (models.quantize.calibrate_activation_scales).
     quantized: Any = False
+    # Training: recompute each stage in the backward pass
+    # (torch.utils.checkpoint), trading compute for activation memory.
+    remat: bool = False
 
     def __post_init__(self):
         if self.quantized not in QUANT_MODES:
@@ -109,20 +116,59 @@ class PostProcessConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Solver, loss and label settings (``smap_tpu.config.TrainConfig``)."""
+
+    img_per_device: int = 2
+    base_lr: float = 2e-4
+    weight_decay: float = 8e-6
+    max_iter: int = 192_000
+    warmup_iters: int = 2400
+    warmup_factor: float = 0.1
+    checkpoint_period: int = 4800
+    # The schedule is quoted for 8 devices; iteration counts rescale by
+    # nominal_devices / devices and the learning rate by devices.
+    nominal_devices: int = 8
+    ohkm: bool = True
+    topk: int = 8
+    coarse_to_fine: bool = True
+    with_mds: bool = True
+    max_people: int = 20
+    # One odd Gaussian size per label pyramid level, coarse to fine.
+    gaussian_kernels: Tuple[Tuple[int, int], ...] = (
+        (15, 15), (11, 11), (9, 9), (7, 7), (5, 5))
+    paf_line_width: float = 1.0
+    # Host augmentation. Not read by the port yet: its pipeline is not
+    # ported, and setting any of these changes nothing today.
+    center_trans_max: float = 40.0     # not read yet
+    rotate_max_deg: float = 10.0       # not read yet
+    flip_prob: float = 0.5             # not read yet
+    scale_min: float = 0.8             # not read yet
+    scale_max: float = 1.1             # not read yet
+    composed_warp: bool = False        # not read yet
+
+
+@dataclasses.dataclass(frozen=True)
 class RefineNetConfig:
-    """RefineNet MLP widths (``smap_tpu.config.RefineNetConfig``)."""
+    """RefineNet MLP and its solver (``smap_tpu.config.RefineNetConfig``)."""
 
     in_dim: int = 75
     out_dim: int = 45
     hidden: Tuple[int, ...] = (160, 256, 256, 128)
+    batch_size: int = 1024
+    base_lr: float = 0.08
+    num_epochs: int = 200
+    lr_step: int = 30
+    lr_gamma: float = 0.5
 
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    """Top-level serving config bundle."""
+    """Top-level config bundle."""
 
     model: ModelConfig = ModelConfig()
     post: PostProcessConfig = PostProcessConfig()
+    train: TrainConfig = TrainConfig()
     refine: RefineNetConfig = RefineNetConfig()
     input_shape: Tuple[int, int] = INPUT_SHAPE
     output_shape: Tuple[int, int] = OUTPUT_SHAPE

@@ -8,11 +8,18 @@ BN-folded model (``"folded"``, ``models.quantize.fold_bn_state_dict``) has
 no ``bn`` submodules; an int8 model (True or ``"static"``,
 ``models.quantize.quantize_state_dict``) has none either, and each ``conv``
 is an :class:`Int8Conv`.
+
+Training (``module.train()``) follows Flax as the JAX package trains:
+float32 parameters, each conv casting its kernel and bias to the input's
+dtype per call (so gradients reach the float32 weights), and BatchNorm
+normalising in float32 by the batch's biased variance, with that same
+variance in its running statistics.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Sequence, Tuple
+import contextlib
+from typing import Any, Callable, Iterator, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,8 +37,62 @@ from smap_tpu_torch.ops.int8_conv import (act_absmax, int8_conv2d,
 FUSE_ROWS = 8
 
 
+class _FlaxBatchNorm:
+    """Train mode of Flax's ``nn.BatchNorm(momentum=0.9)``, for a subclass
+    of a PyTorch BatchNorm (whose eval mode and state_dict keys it keeps).
+
+    PyTorch moves ``running_var`` towards the batch's unbiased variance;
+    Flax, and so the JAX package, towards the biased one it normalises by
+    (at 192 pixels a channel that is a factor 192/191 on every update).
+    The batch statistics come from ``torch.native_batch_norm``, which
+    normalises in float32 whatever the input's dtype; the variance is taken
+    back from its inverse standard deviation in float64. ``frozen`` (set by
+    :func:`frozen_batch_stats`) leaves the running statistics alone."""
+
+    frozen = False
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y, mean, invstd = torch.native_batch_norm(
+            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        if not self.frozen:
+            with torch.no_grad():
+                var = invstd.double().pow(-2).sub_(self.eps).clamp_(min=0)
+                m = self.momentum
+                self.running_mean.mul_(1 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1 - m).add_(var.float(), alpha=m)
+                self.num_batches_tracked.add_(1)
+        return y
+
+
+class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose train mode is Flax's (:class:`_FlaxBatchNorm`)."""
+
+
+class BatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` whose train mode is Flax's (:class:`_FlaxBatchNorm`)."""
+
+
+@contextlib.contextmanager
+def frozen_batch_stats(module: nn.Module) -> Iterator[None]:
+    """Inside the block, the train-mode BatchNorms of ``module`` normalise
+    by the batch but do not update their running statistics: a stage
+    recomputed in the backward pass (``ModelConfig.remat``) updated them
+    once already, in its forward, as Flax's ``nn.remat`` does."""
+    bns = [m for m in module.modules() if isinstance(m, _FlaxBatchNorm)]
+    for m in bns:
+        m.frozen = True
+    try:
+        yield
+    finally:
+        for m in bns:
+            m.frozen = False
+
+
 class ConvBnRelu(nn.Module):
-    """Conv2d (with bias) + eval-mode BatchNorm (eps 1e-5) + optional ReLU;
+    """Conv2d (with bias) + BatchNorm (eps 1e-5; by the running statistics
+    in eval mode, by the batch's in train mode) + optional ReLU;
     ``quant="folded"``: the conv alone, BatchNorm being folded into it;
     int8 ``quant``: an :class:`Int8Conv` with the ReLU in its epilogue.
 
@@ -49,8 +110,8 @@ class ConvBnRelu(nn.Module):
         else:
             self.conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride=stride,
                                   padding=padding, bias=True)
-        self.bn = None if quant else nn.BatchNorm2d(out_ch, eps=1e-5,
-                                                    momentum=0.1)
+        self.bn = None if quant else BatchNorm2d(out_ch, eps=1e-5,
+                                                 momentum=0.1)
         self.has_relu = has_relu
 
     @property
@@ -63,11 +124,13 @@ class ConvBnRelu(nn.Module):
         c = self.conv
         if isinstance(c, Int8Conv):
             return c(x)
+        w, b = c.weight, c.bias
+        if w.dtype != x.dtype:   # float32 parameters, a bf16 forward
+            w, b = w.to(x.dtype), b.to(x.dtype)
         # The bias is added to the conv's result rounded to its dtype, as
         # the JAX package's Conv2D does (and PyTorch's cuDNN path does on
         # the card; on the CPU a fused bias would round once, not twice).
-        x = F.conv2d(x, c.weight, None, c.stride, c.padding).add_(
-            c.bias[:, None, None])
+        x = F.conv2d(x, w, None, c.stride, c.padding).add_(b[:, None, None])
         if self.bn is not None:
             x = self.bn(x)
         return F.relu(x) if self.has_relu else x

@@ -3,7 +3,9 @@
 
 75 -> (160, 256, 256, 128) -> 45 with BatchNorm1d + ReLU between the
 linear layers. Keys follow the reference layout: ``block.layerN.0`` Linear,
-``block.layerN.1`` BatchNorm1d, ``block.layer5`` Linear.
+``block.layerN.1`` BatchNorm1d, ``block.layer5`` Linear. In train mode the
+BatchNorms update their statistics as Flax's do
+(``models.layers.BatchNorm1d``).
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import torch
 from torch import nn
 
 from smap_tpu_torch.config import RefineNetConfig
+from smap_tpu_torch.models.layers import BatchNorm1d
 
 
 class RefineNet(nn.Module):
@@ -22,7 +25,7 @@ class RefineNet(nn.Module):
         for i in range(len(cfg.hidden)):
             setattr(self.block, f"layer{i + 1}", nn.Sequential(
                 nn.Linear(dims[i], dims[i + 1]),
-                nn.BatchNorm1d(dims[i + 1], eps=1e-5, momentum=0.1),
+                BatchNorm1d(dims[i + 1], eps=1e-5, momentum=0.1),
                 nn.ReLU()))
         setattr(self.block, f"layer{len(cfg.hidden) + 1}",
                 nn.Linear(dims[-1], cfg.out_dim))

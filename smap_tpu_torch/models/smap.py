@@ -6,19 +6,28 @@ network is NCHW, in channels_last memory when the input is (an NHWC tensor
 permuted to NCHW already is). Submodule names give the reference
 state_dict keys, e.g. ``stage0.downsample.layer1.0.conv_bn_relu1.conv.weight``
 (``smap_tpu.models.torch_convert.export_smap_state_dict``).
+
+``model.train()`` gives the training forward of the JAX package's
+``SMAP.__call__(train=True)``: every head of every stage, BatchNorm by the
+batch (``models.layers``), and under ``cfg.remat`` each stage recomputed in
+the backward pass.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from smap_tpu_torch.config import ModelConfig
 from smap_tpu_torch.models.layers import (Bottleneck, ConvBnRelu,
                                           PackedModule, PackedWeights,
+                                          frozen_batch_stats,
                                           max_pool_3x3_s2, resize_bilinear)
 from smap_tpu_torch.ops.fused_stem import fused_stem, pack_stem_for_kernel
 
@@ -213,6 +222,12 @@ def _nhwc_f32(r: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
     return None if r is None else r.float().permute(0, 2, 3, 1)
 
 
+def _remat_contexts(stage: nn.Module):
+    """``torch.utils.checkpoint``'s contexts for a stage: none around its
+    forward, frozen BatchNorm statistics around its recomputation."""
+    return contextlib.nullcontext(), frozen_batch_stats(stage)
+
+
 class SMAP(nn.Module):
     """Full SMAP network.
 
@@ -230,12 +245,19 @@ class SMAP(nn.Module):
     bottlenecks through the fused kernels; they are the counterparts of the
     JAX package's ``SMAP_TPU_FUSE_STEM`` and ``SMAP_TPU_FUSE_BOTTLENECK``,
     off by default as there, and change no state_dict key.
+
+    ``self.compute_dtype``: the dtype the forward computes in; None (the
+    serving models, cast whole by ``models.layers.to_compute_dtype``) is
+    the dtype of the convolutions' parameters. A trained model keeps
+    float32 parameters and computes in ``cfg.compute_dtype``
+    (``train.step.training_model`` sets it).
     """
 
     def __init__(self, cfg: ModelConfig = ModelConfig(),
                  fuse_stem: bool = False, fuse_bottleneck: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.compute_dtype: Optional[torch.dtype] = None
         self.top = ResNetTop(cfg.trunk_width, cfg.quantized, fuse_stem)
         for i in range(cfg.stage_num):
             last = i == cfg.stage_num - 1
@@ -247,14 +269,23 @@ class SMAP(nn.Module):
     def forward(self, imgs: torch.Tensor,
                 head_specs: Optional[Sequence[Sequence[Heads]]] = None
                 ) -> Dict[str, List[List[Optional[torch.Tensor]]]]:
-        dtype = self.top.conv.dtype
+        dtype = self.compute_dtype or self.top.conv.dtype
         x = self.top(imgs.permute(0, 3, 1, 2).to(dtype))
         outputs = {"heatmap_2d": [], "det_d": [], "root_d": []}
         skip1 = skip2 = None
+        remat = self.cfg.remat and self.training and torch.is_grad_enabled()
         for i in range(self.cfg.stage_num):
             spec = ALL_HEADS if head_specs is None else head_specs[i]
-            res, res_d, res_rd, skip1, skip2, x = getattr(
-                self, f"stage{i}")(x, skip1, skip2, spec)
+            stage = getattr(self, f"stage{i}")
+            if remat:
+                res, res_d, res_rd, skip1, skip2, x = (
+                    torch.utils.checkpoint.checkpoint(
+                        stage, x, skip1, skip2, spec, use_reentrant=False,
+                        context_fn=functools.partial(_remat_contexts,
+                                                     stage)))
+            else:
+                res, res_d, res_rd, skip1, skip2, x = stage(x, skip1, skip2,
+                                                            spec)
             outputs["heatmap_2d"].append([_nhwc_f32(r) for r in res])
             outputs["det_d"].append([_nhwc_f32(r) for r in res_d])
             outputs["root_d"].append([_nhwc_f32(r) for r in res_rd])

@@ -71,11 +71,18 @@ def test_config_mirrors_jax_config():
                  "INPUT_SHAPE", "STRIDE", "OUTPUT_SHAPE", "PIXEL_MEANS_BGR",
                  "PIXEL_STDS_BGR"):
         assert getattr(tc, name) == getattr(jc, name), name
-    for cls in ("ModelConfig", "PostProcessConfig", "RefineNetConfig"):
+    for cls in ("ModelConfig", "PostProcessConfig", "TrainConfig",
+                "RefineNetConfig"):
         port = dataclasses.asdict(getattr(tc, cls)())
         ref = dataclasses.asdict(getattr(jc, cls)())
         assert port == {k: ref[k] for k in port}, cls
+    # Training: every TrainConfig field but the relay's flatten_opt, and
+    # the model's remat.
+    assert (set(dataclasses.asdict(jc.TrainConfig()))
+            - set(dataclasses.asdict(tc.TrainConfig()))) == {"flatten_opt"}
+    assert "remat" in dataclasses.asdict(tc.ModelConfig())
     port = tc.Config()
     ref = jc.Config()
     for f in ("input_shape", "output_shape", "stride"):
         assert getattr(port, f) == getattr(ref, f), f
+    assert port.train == tc.TrainConfig()

@@ -1,5 +1,6 @@
-"""The port imports no JAX: every module of the serving slice loads in a
-fresh interpreter without jax, flax or the JAX package."""
+"""The port imports no JAX: every module of the serving and training
+slices loads in a fresh interpreter without jax, flax or the JAX
+package."""
 
 import os
 import subprocess
@@ -30,6 +31,14 @@ SLICE_MODULES = (
     "smap_tpu_torch.ops.fused_block",
     "smap_tpu_torch.inference",
     "smap_tpu_torch.golden",
+    "smap_tpu_torch.data.labels",
+    "smap_tpu_torch.data.datasets",
+    "smap_tpu_torch.losses",
+    "smap_tpu_torch.utils.metrics",
+    "smap_tpu_torch.train.solver",
+    "smap_tpu_torch.train.step",
+    "smap_tpu_torch.train.engine",
+    "smap_tpu_torch.train.refine",
 )
 
 
