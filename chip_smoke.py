@@ -71,9 +71,26 @@ exits non-zero with no result line):
    statistics); ``DESCENT_STEPS`` steps on one batch at 32x48, in float32
    and in bf16 compute (loss first / last > 2 each); ``train_refinenet`` at batch 1024 (the MSE falls,
    ``select_best_epoch`` picks an epoch).
+9. entry points, each run as ``python -m smap_tpu_torch.<cli>`` on PNG
+   frames of 1080x1920 that this script writes with its own encoder (no
+   OpenCV): ``data.image.imread`` reads them back equal (ms a frame, and
+   the decode rate of rows filtered Sub, Average and Paeth), letterbox
+   and I420 ms a frame; ``serve`` over 32 frames at ``Config()``, batch
+   16, with perturbed weights from a ``.pth``, in the default (A, B),
+   ``--folded --fuse-stem --fuse-bottleneck`` (C, D) and ``--int8-static``
+   (E) modes: its JSON lines equal ``run_batch`` on the same I420 frames,
+   its frames/s beside run_batch's, its own launch counts; ``test_smap -t
+   generate_result`` / ``generate_train`` equal ``run_labeled_inference``;
+   ``train_refinenet`` for one epoch and ``test_refinenet`` on its
+   snapshot; ``train_smap --deterministic`` at full width, batch 8, two
+   steps and then ``--resume`` for a third with 4 worker processes, the
+   losses of ``Trainer.fit`` on the same ``train_iterator`` in this
+   process under the same deterministic algorithms;
+   ``train_iterator``'s samples/s at 0 and 4 workers.
 
 The last lines are the kernels' JSON summary (per kernel: times, launches
-in the main path and per forward or batch, the least time the card could
+in the main path and per forward or batch, launches in the serve CLI's
+three runs (``cli_launches``), the least time the card could
 take at its published peaks, ``bound_ms``, with what bounds it and the share
 of it reached), the card's name and power limit (nvidia-smi), and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -86,9 +103,11 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import struct
 import subprocess
 import sys
 import time
+import zlib
 
 import numpy as np
 import torch
@@ -161,6 +180,20 @@ CARD_LOSS_RTOL = {"total_loss": 1e-4, "loss_2d": 1e-4, "loss_bone": 1e-4,
 CARD_NOISE = 4.0
 DESCENT_STEPS = 220
 REFINE_PAIRS, REFINE_EPOCHS = 16384, 5
+# Phase 9 (entry points), on PNG frames of FRAME_HW: CLI_FRAMES for the
+# serve CLI (two batches of BATCH), the first LABELED_FRAMES for test_smap,
+# the first TRAIN_FRAMES for train_smap's TRAIN_CLI_STEPS steps.
+FRAME_HW = (1080, 1920)
+CLI_FRAMES, LABELED_FRAMES, TRAIN_FRAMES = 32, 8, 24
+TRAIN_CLI_STEPS = 3
+# train_smap --deterministic against Trainer.fit in this process under
+# the same deterministic algorithms: the same weights, batches and sums,
+# so the same losses (without them the card's backward sums in a
+# run-dependent order, and the fresh network moved loss_root of step 2 by
+# 12% on an H100; PERF.md section 6).
+TRAIN_CLI_RTOL = 1e-6
+ITER_BATCHES = 1       # batches timed in train_iterator's rates
+CLI_TIMEOUT = 600
 
 
 def log(msg: str) -> None:
@@ -1350,23 +1383,6 @@ def dist(a: torch.Tensor, b: torch.Tensor) -> float:
 
 
 @contextlib.contextmanager
-def deterministic(on: bool):
-    """PyTorch's deterministic algorithms (and cuDNN's) inside the block
-    when ``on``; an op with no deterministic version warns."""
-    if not on:
-        yield
-        return
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    torch.backends.cudnn.deterministic = True
-    try:
-        yield
-    finally:
-        torch.use_deterministic_algorithms(False)
-        torch.backends.cudnn.deterministic = False
-
-
-@contextlib.contextmanager
 def resize_in_float32(on: bool):
     """The model's bilinear resizes in float32 (forward and backward),
     cast back to the input's dtype, inside the block when ``on``."""
@@ -1457,6 +1473,7 @@ def training_options(dev, card: str, cfg, out_dir, batches, state,
     import copy
     import dataclasses
 
+    from smap_tpu_torch.runtime import deterministic_algorithms
     from smap_tpu_torch.train.engine import Trainer, TrainerConfig
     from smap_tpu_torch.train.step import train_step
 
@@ -1489,7 +1506,7 @@ def training_options(dev, card: str, cfg, out_dir, batches, state,
         st = trainer.init_state(0)
         trainer.close()
         st.model.load_state_dict(weights)
-        with deterministic(det), resize_in_float32(resize32):
+        with deterministic_algorithms(det), resize_in_float32(resize32):
             (st, losses), peak = cuda_peak(
                 lambda: train_step(st, batches[0], cfg=c))
         runs[key] = (losses_ok(losses, key), peak, grad_vector(st.model).cpu(),
@@ -1719,6 +1736,432 @@ def phase_training(dev, card: str) -> None:
         raise AssertionError("the training path launched a serving kernel")
 
 
+def png_bytes(img: np.ndarray, filter_type: int = 2) -> bytes:
+    """A BGR uint8 frame as an RGB PNG with one filter type on every row
+    (1 Sub, 2 Up, 3 Average, 4 Paeth, predicted from the frame itself),
+    zlib level 1: this script's own writer, with no OpenCV."""
+    h, w, _ = img.shape
+    x = img[..., ::-1].reshape(h, -1).astype(np.int32)
+    up = np.vstack([np.zeros((1, x.shape[1]), np.int32), x[:-1]])
+    left = np.hstack([np.zeros((h, 3), np.int32), x[:, :-3]])
+    if filter_type == 1:
+        pred = left
+    elif filter_type == 2:
+        pred = up
+    elif filter_type == 3:
+        pred = (left + up) >> 1
+    else:
+        upleft = np.hstack([np.zeros((h, 3), np.int32), up[:, :-3]])
+        pa, pb = np.abs(up - upleft), np.abs(left - upleft)
+        pc = np.abs(left + up - 2 * upleft)
+        pred = np.where((pa <= pb) & (pa <= pc), left,
+                        np.where(pb <= pc, up, upleft))
+    rows = np.hstack([np.full((h, 1), filter_type, np.int32),
+                      (x - pred) & 255]).astype(np.uint8)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
+            + chunk(b"IEND", b""))
+
+
+def cli_frames(n: int, seed: int = 0):
+    """``n`` FRAME_HW BGR frames: 8x8 blocks of random colour with +-2 of
+    noise."""
+    rng = np.random.RandomState(seed)
+    h, w = FRAME_HW
+    frames = []
+    for _ in range(n):
+        base = rng.randint(0, 256, (h // 8 + 1, w // 8 + 1, 3))
+        img = np.repeat(np.repeat(base, 8, 0), 8, 1)[:h, :w]
+        img = img + rng.randint(-2, 3, img.shape)
+        frames.append(np.clip(img, 0, 255).astype(np.uint8))
+    return frames
+
+
+def run_cli(module: str, *args: str) -> subprocess.CompletedProcess:
+    """``python -m smap_tpu_torch.<module> args`` from the repository root;
+    raises with its output unless it exits 0."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", f"smap_tpu_torch.{module}",
+                          *args], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=CLI_TIMEOUT)
+    if out.returncode != 0:
+        raise AssertionError(f"{module} {' '.join(args)} exited "
+                             f"{out.returncode}:\n{out.stdout[-4000:]}\n"
+                             f"{out.stderr[-4000:]}")
+    out.seconds = time.perf_counter() - t0
+    return out
+
+
+def same_pairs(got, want, label: str) -> float:
+    """Pair lists with equal keys, counts, paths and ground truth, and
+    predictions within DECODE_ATOL; returns the largest difference."""
+    if len(got) != len(want):
+        raise AssertionError(f"{label}: {len(got)} items, want {len(want)}")
+    err = 0.0
+    for g, w in zip(got, want):
+        if g.keys() != w.keys():
+            raise AssertionError(f"{label}: keys {sorted(g)} vs {sorted(w)}")
+        for key in g:
+            if key in ("pred_2d", "pred_3d", "root_d"):
+                a, b = np.asarray(g[key], float), np.asarray(w[key], float)
+                if a.shape != b.shape:
+                    raise AssertionError(f"{label}: {key} {a.shape} vs "
+                                         f"{b.shape}")
+                err = max(err, float(np.abs(a - b).max(initial=0.0)))
+            elif g[key] != w[key]:
+                raise AssertionError(f"{label}: {key} differs")
+    if not err <= DECODE_ATOL:
+        raise AssertionError(f"{label}: max abs err {err} > {DECODE_ATOL}")
+    return err
+
+
+def host_pipeline(frames, frame_dir: str, card: str):
+    """Writes the frames as PNG, reads them back with ``data.image.imread``
+    (equal), letterboxes and packs them; prints each stage's ms a frame,
+    and the decode rate of rows filtered Sub, Average and Paeth. Returns
+    the paths."""
+    from smap_tpu_torch.config import INPUT_SHAPE
+    from smap_tpu_torch.data.image import bgr_to_i420, imread
+    from smap_tpu_torch.data.preprocess import letterbox_image
+
+    t0 = time.perf_counter()
+    paths = []
+    for i, img in enumerate(frames):
+        paths.append(os.path.join(frame_dir, f"frame{i:03d}.png"))
+        with open(paths[-1], "wb") as f:
+            f.write(png_bytes(img))
+    write_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    t0 = time.perf_counter()
+    back = [imread(p) for p in paths]
+    read_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    if not all(np.array_equal(a, b) for a, b in zip(back, frames)):
+        raise AssertionError("host: imread of the PNG frames differs")
+    t0 = time.perf_counter()
+    boxed = [letterbox_image(img, INPUT_SHAPE)[0] for img in back]
+    box_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    t0 = time.perf_counter()
+    for img in boxed:
+        bgr_to_i420(img)
+    i420_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+    mb = frames[0].nbytes / 1e6
+    log(f"host: {len(frames)} PNG frames of {FRAME_HW[0]}x{FRAME_HW[1]} "
+        f"(rows filtered Up): write {write_ms:.1f} ms a frame, imread "
+        f"{read_ms:.1f} ms a frame ({mb * 1e3 / read_ms:.1f} MB/s of "
+        f"pixels), equal to the frames; letterbox to {INPUT_SHAPE[0]}x"
+        f"{INPUT_SHAPE[1]} (resize_linear) {box_ms:.1f} ms, bgr_to_i420 "
+        f"{i420_ms:.2f} ms a frame [{card}]")
+    rates = []
+    for kind, name in ((1, "Sub"), (3, "Average"), (4, "Paeth")):
+        path = os.path.join(frame_dir, f"filter{kind}.png.tmp")
+        with open(path, "wb") as f:
+            f.write(png_bytes(frames[0], kind))
+        os.replace(path, path[:-4])
+        t0 = time.perf_counter()
+        img = imread(path[:-4])
+        ms = (time.perf_counter() - t0) * 1e3
+        os.remove(path[:-4])
+        if not np.array_equal(img, frames[0]):
+            raise AssertionError(f"host: imread of a {name} PNG differs")
+        rates.append(f"{name} {ms:.0f} ms ({mb * 1e3 / ms:.2f} MB/s)")
+    log(f"host: imread of one frame with every row filtered " +
+        ", ".join(rates) + f" [{card}]")
+    return paths
+
+
+def serve_cli_modes(dev, card: str, sd_path: str, sd, frame_dir: str,
+                    paths, frames) -> dict:
+    """The serve CLI in its three modes against run_batch on the same I420
+    frames; the CLI's own frames/s and kernel launches. Returns the
+    launches summed over the modes."""
+    from smap_tpu_torch.config import Config
+    from smap_tpu_torch.inference import SMAPInference
+    from smap_tpu_torch.serve import wire_frame
+
+    cfg = Config()
+    wire = [wire_frame(img, cfg) for img in frames]
+    batches = [(np.stack([w[0] for w in wire[s:s + BATCH]]),
+                [w[1] for w in wire[s:s + BATCH]])
+               for s in range(0, len(wire), BATCH)]
+    n_batches = len(batches)
+    modes = {
+        "default": ([], dict(), {"fused_stem": 0, "fused_bottleneck": 0,
+                                 "int8_conv": 0}),
+        "folded-fused": (["--folded", "--fuse-stem", "--fuse-bottleneck"],
+                         dict(quantized="folded", fuse_stem=True,
+                              fuse_bottleneck=True),
+                         {"fused_stem": n_batches,
+                          "fused_bottleneck": 9 * n_batches,
+                          "int8_conv": 0}),
+        "int8-static": (["--int8-static", "--calib-dir", frame_dir],
+                        dict(quantized="static",
+                             calibration_batches=[batches[0][0]]),
+                        {"fused_stem": 0, "fused_bottleneck": 0,
+                         "int8_conv": 206 * n_batches}),
+    }
+    total = {}
+    for name, (flags, kw, want_launches) in modes.items():
+        out_path = os.path.join(frame_dir, f"serve_{name}.jsonl")
+        out = run_cli("serve", "--source", frame_dir, "-p", sd_path,
+                      "--out", out_path, "--batch_size", str(BATCH), *flags)
+        summary = json.loads(out.stderr.strip().splitlines()[-1])
+        with open(out_path) as f:
+            lines = [json.loads(line) for line in f]
+        launches = summary["kernel_launches"]
+        ok = all(launches[k] == v for k, v in want_launches.items())
+        if not (ok and launches["paf_score"] >= n_batches
+                and launches["associate"] == launches["paf_score"]):
+            raise AssertionError(f"serve {name}: launches {launches}, want "
+                                 f"{want_launches} and >= {n_batches} of A "
+                                 f"and B")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+        engine = SMAPInference(sd, cfg, device=dev,
+                               adaptive_capacities=LADDER, **kw)
+        for images, scales in batches[:1]:                    # warm-up
+            engine.results_to_pairs(engine.run_batch(images, scales),
+                                    [""] * len(scales))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = []
+        for i, (images, scales) in enumerate(batches):
+            want += engine.results_to_pairs(
+                engine.run_batch(images, scales),
+                paths[i * BATCH:(i + 1) * BATCH])
+        rate = len(wire) / (time.perf_counter() - t0)
+        err = same_pairs(lines, json.loads(json.dumps(want)),
+                         f"serve {name}")
+        people = sum(len(p["pred_3d"]) for p in lines)
+        log(f"entry points: serve {name}: {summary['frames']} frames "
+            f"{summary['frames_per_s']:.2f} frames/s end to end (PNG "
+            f"decode, letterbox, I420, serving, JSONL; {out.seconds:.1f} s "
+            f"of process), run_batch on its I420 frames {rate:.1f} img/s; "
+            f"{len(lines)} lines equal to run_batch's (max abs err "
+            f"{err:.3g}, {people} people); launches {launches} [{card}]")
+        del engine
+    return total
+
+
+def labeled_cli(dev, card: str, sd_path: str, sd, frame_dir: str,
+                frames) -> None:
+    """test_smap's generate modes on LABELED_FRAMES of the frames, one
+    crafted person each, against run_labeled_inference; then
+    train_refinenet for one epoch and test_refinenet on its snapshot."""
+    from smap_tpu_torch.config import Config
+    from smap_tpu_torch.data.datasets import JointDataset, load_annotations
+    from smap_tpu_torch.inference import SMAPInference, run_labeled_inference
+
+    cfg = Config()
+    rng = np.random.RandomState(7)
+    h, w = FRAME_HW
+    records = []
+    for i in range(LABELED_FRAMES):
+        bodys = np.zeros((1, 15, 11))
+        bodys[..., 0] = rng.uniform(300, w - 300, 15)
+        bodys[..., 1] = rng.uniform(200, h - 200, 15)
+        bodys[..., 2] = rng.uniform(300, 600, 15)
+        bodys[..., 3] = 2
+        bodys[..., 4:7] = rng.randn(1, 15, 3) * 30
+        bodys[..., 7:] = [1500.0, 1500.0, w / 2, h / 2]
+        records.append({"dataset": "MUPOTS",
+                        "img_paths": f"frame{i:03d}.png", "img_height": h,
+                        "img_width": w, "isValidation": 1,
+                        "bodys": bodys.tolist()})
+    annot = os.path.join(frame_dir, "annot.json")
+    with open(annot, "w") as f:
+        json.dump({"root": records}, f)
+    engine = SMAPInference(sd, cfg, device=dev)
+    pairs = None
+    for mode, data_mode in (("generate_result", "test"),
+                            ("generate_train", "generation")):
+        out = run_cli("test_smap", "-t", mode, "-d", data_mode, "-p",
+                      sd_path, "--test-json", annot, "--test-root",
+                      frame_dir, "--batch_size", str(BATCH), "--output-dir",
+                      frame_dir)
+        path = os.path.join(frame_dir, f"stage3_root2_{mode}_{data_mode}"
+                                       f".json")
+        with open(path) as f:
+            got = json.load(f)
+        stage = "generation" if mode == "generate_train" else "test"
+        dataset = JointDataset(load_annotations(annot),
+                               {"MUPOTS": frame_dir}, cfg, stage)
+        want = run_labeled_inference(dataset, engine, mode=mode,
+                                     batch_size=BATCH)
+        err = same_pairs(got["3d_pairs"],
+                         json.loads(json.dumps(want["3d_pairs"])),
+                         f"test_smap {mode}")
+        log(f"entry points: test_smap -t {mode}: {len(got['3d_pairs'])} "
+            f"items equal to run_labeled_inference's (max abs err "
+            f"{err:.3g}), {out.seconds:.1f} s of process")
+        pairs = got["3d_pairs"]
+
+    # RefineNet on crafted pairs (random weights match few roots), after
+    # the pairs generate_train wrote.
+    gt = rng.randn(REFINE_PAIRS // 8, 15, 3) * 30 + [0.0, 0.0, 400.0]
+    pred = np.concatenate([gt + rng.randn(*gt.shape) * 5,
+                           np.ones((*gt.shape[:2], 1))], -1)
+    pairs = pairs + [{"pred_3d": p.tolist(),
+                      "pred_2d": (g[:, :2] / g[:, 2:] * 1000 + 400).tolist(),
+                      "gt_3d": g.tolist(), "root_d": 400.0}
+                     for p, g in zip(pred, gt)]
+    pairs_path = os.path.join(frame_dir, "pairs.json")
+    with open(pairs_path, "w") as f:
+        json.dump({"3d_pairs": pairs}, f)
+    snaps = os.path.join(frame_dir, "refinenet")
+    out = run_cli("train_refinenet", "--pairs-json", pairs_path,
+                  "--epochs", "1", "--output-dir", snaps)
+    if os.listdir(snaps) != ["epoch_0.pth"]:
+        raise AssertionError(f"train_refinenet wrote {os.listdir(snaps)}")
+    out = run_cli("test_refinenet", "--pairs-json", pairs_path,
+                  "--snapshot-dir", snaps)
+    best = out.stdout.strip().splitlines()[-1]
+    if not best.startswith("best epoch: 0 ("):
+        raise AssertionError(f"test_refinenet: {out.stdout}")
+    log(f"entry points: train_refinenet, 1 epoch on {len(pairs)} pairs, "
+        f"then test_refinenet: {best}")
+
+
+def train_cli(dev, card: str, frame_dir: str) -> None:
+    """train_smap --deterministic at full width on TRAIN_FRAMES PNG frames
+    (MuCo and COCO records): TRAIN_CLI_STEPS - 1 steps with no worker,
+    then --resume for one more with 4; the losses of Trainer.fit on the
+    same train_iterator in this process, under the same deterministic
+    algorithms; train_iterator's samples/s at 0 and 4 workers."""
+    from smap_tpu_torch.config import Config
+    from smap_tpu_torch.data.datasets import (JointDataset, load_annotations,
+                                              train_iterator)
+    from smap_tpu_torch.runtime import deterministic_algorithms
+    from smap_tpu_torch.train.engine import Trainer, TrainerConfig
+
+    cfg = Config()
+    rng = np.random.RandomState(8)
+    h, w = FRAME_HW
+    roots, flags = {}, []
+    for name, first, count in (("MUCO", 0, 2 * TRAIN_FRAMES // 3),
+                               ("COCO", 2 * TRAIN_FRAMES // 3,
+                                TRAIN_FRAMES // 3)):
+        records = []
+        for i in range(first, first + count):
+            people = rng.randint(1, 4)
+            bodys = np.zeros((people, 15, 11))
+            bodys[..., 0] = rng.uniform(100, w - 100, (people, 15))
+            bodys[..., 1] = rng.uniform(100, h - 100, (people, 15))
+            bodys[..., 2] = rng.uniform(300, 600, (people, 15))
+            bodys[..., 3] = 2
+            bodys[..., 4:7] = rng.randn(people, 15, 3) * 30
+            bodys[..., 7:] = [1500.0, 1500.0, w / 2, h / 2]
+            records.append({"dataset": name,
+                            "img_paths": f"frame{i:03d}.png",
+                            "img_height": h, "img_width": w,
+                            "isValidation": 0, "bodys": bodys.tolist()})
+        annot = os.path.join(frame_dir, f"{name.lower()}.json")
+        with open(annot, "w") as f:
+            json.dump({"root": records}, f)
+        roots[name] = frame_dir
+        flags += [f"--{name.lower()}-json", annot,
+                  f"--{name.lower()}-root", frame_dir]
+    out_dir = os.path.join(frame_dir, "train_cli")
+    flags += ["--output-dir", out_dir, "--batch-per-device",
+              str(TRAIN_BATCH), "--log-every", "1", "--seed", "0",
+              "--deterministic"]
+    first = run_cli("train_smap", *flags, "--max-steps",
+                    str(TRAIN_CLI_STEPS - 1), "--num-workers", "0")
+    ckpts = sorted(os.listdir(os.path.join(out_dir, "checkpoints")))
+    if ckpts != [f"{TRAIN_CLI_STEPS - 1}.pt"]:
+        raise AssertionError(f"train_smap checkpoints {ckpts}")
+    second = run_cli("train_smap", *flags, "--max-steps",
+                     str(TRAIN_CLI_STEPS), "--num-workers", "4", "--resume")
+    with open(os.path.join(out_dir, "tb_dir", "metrics.jsonl")) as f:
+        got = [json.loads(line) for line in f]
+
+    records = (load_annotations(os.path.join(frame_dir, "coco.json"))
+               + load_annotations(os.path.join(frame_dir, "muco.json")))
+    dataset = JointDataset(records, roots, cfg, "train",
+                           with_augmentation=True)
+    ref_dir = os.path.join(frame_dir, "train_ref")
+    trainer = Trainer(cfg, TrainerConfig(output_dir=ref_dir, log_every=1,
+                                         seed=0), device=dev)
+    batches = train_iterator(dataset, TRAIN_BATCH, TRAIN_CLI_STEPS, seed=0,
+                             num_workers=4)
+    t0 = time.perf_counter()
+    with deterministic_algorithms():
+        trainer.fit(batches, state=trainer.init_state(0),
+                    max_steps=TRAIN_CLI_STEPS)
+    fit_rate = TRAIN_CLI_STEPS * TRAIN_BATCH / (time.perf_counter() - t0)
+    batches.close()
+    trainer.close()
+    with open(os.path.join(ref_dir, "tb_dir", "metrics.jsonl")) as f:
+        want = [json.loads(line) for line in f]
+    keys = ("total_loss", "loss_2d", "loss_bone", "loss_root")
+    steps = list(range(1, TRAIN_CLI_STEPS + 1))
+    if [r["step"] for r in got] != steps or [r["step"] for r in want] != steps:
+        raise AssertionError(f"train_smap steps {[r['step'] for r in got]}, "
+                             f"Trainer.fit {[r['step'] for r in want]}")
+    worst = []
+    for g, r in zip(got, want):
+        rel = max(abs(g[k] - r[k]) / abs(r[k]) for k in keys)
+        losses_ok({k: g[k] for k in keys}, f"train_smap step {g['step']}")
+        if not rel <= TRAIN_CLI_RTOL:
+            raise AssertionError(f"train_smap step {g['step']}: "
+                                 f"{ {k: g[k] for k in keys} } vs Trainer.fit "
+                                 f"{ {k: r[k] for k in keys} }")
+        worst.append(rel)
+    log(f"entry points: train_smap --deterministic, {TRAIN_CLI_STEPS - 1} "
+        f"steps ("
+        f"{first.seconds:.1f} s of process) then --resume to step "
+        f"{TRAIN_CLI_STEPS} with 4 workers ({second.seconds:.1f} s): losses "
+        f"of Trainer.fit on the same train_iterator, largest relative "
+        f"difference a step {', '.join(f'{x:.2g}' for x in worst)}; "
+        f"Trainer.fit with 4 workers {fit_rate:.2f} img/s over "
+        f"{TRAIN_CLI_STEPS} steps [{card}]")
+
+    rates = {}
+    for workers in (0, 4):
+        it = train_iterator(dataset, TRAIN_BATCH,
+                            ITER_BATCHES + bool(workers), seed=1,
+                            num_workers=workers)
+        if workers:
+            next(it)                    # the pool's start-up, untimed
+        t0 = time.perf_counter()
+        n = sum(1 for _ in it)
+        rates[workers] = n * TRAIN_BATCH / (time.perf_counter() - t0)
+        it.close()
+    log(f"entry points: train_iterator at {FRAME_HW[0]}x{FRAME_HW[1]} "
+        f"(imread, rotate, resize, crop, flip, normalize): "
+        f"{rates[0]:.2f} samples/s with no worker, {rates[4]:.2f} with 4 "
+        f"(phase 8's Trainer.fit takes {TRAIN_BATCH} a step) [{card}]")
+
+
+def phase_entry_points(dev, card: str) -> dict:
+    """Phase 9: the user's entry points as processes, on PNG frames this
+    script writes. Returns the serve CLI's kernel launches summed over its
+    three modes."""
+    import tempfile
+
+    from smap_tpu_torch.config import Config
+
+    frames = cli_frames(CLI_FRAMES)
+    sd = perturbed_state_dict(Config().model, seed=0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        frame_dir = os.path.join(tmp, "frames")
+        os.makedirs(frame_dir)
+        sd_path = os.path.join(tmp, "smap.pth")
+        torch.save({"model": sd}, sd_path)
+        paths = host_pipeline(frames, frame_dir, card)
+        launches = serve_cli_modes(dev, card, sd_path, sd, frame_dir, paths,
+                                   frames)
+        labeled_cli(dev, card, sd_path, sd, frame_dir, frames)
+        train_cli(dev, card, frame_dir)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script needs "
@@ -1762,6 +2205,9 @@ def main() -> int:
     int8_row["launches_per_forward"] = launches["int8_conv"] / len(batches)
     rows["int8_conv"] = int8_row
     phase_training(dev, card)
+    cli_launches = phase_entry_points(dev, card)
+    for key, row in rows.items():
+        row["cli_launches"] = cli_launches[key]
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_per_forward", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "bound_kind", "share", "library_ms")

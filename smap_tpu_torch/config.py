@@ -8,11 +8,7 @@ package (``tests/test_torch_imports.py`` checks that, and
 ``tests/test_torch_convert.py::test_config_mirrors_jax_config`` checks
 that every value here equals its counterpart there). The TPU-only knobs
 (``paf_impl``, ``paf_parts``, ``assoc_impl``, ``flatten_opt``) are left
-out, as are values nothing in the port reads, but for ``TrainConfig``'s
-host augmentation fields: they are kept so that a ``TrainConfig`` carries
-over from the JAX package whole, and nothing in the port reads them yet
-(the augmentation pipeline is not ported; ``Trainer.fit`` takes batches
-augmented already).
+out, as are values nothing in the port reads.
 """
 
 from __future__ import annotations
@@ -138,14 +134,15 @@ class TrainConfig:
     gaussian_kernels: Tuple[Tuple[int, int], ...] = (
         (15, 15), (11, 11), (9, 9), (7, 7), (5, 5))
     paf_line_width: float = 1.0
-    # Host augmentation. Not read by the port yet: its pipeline is not
-    # ported, and setting any of these changes nothing today.
-    center_trans_max: float = 40.0     # not read yet
-    rotate_max_deg: float = 10.0       # not read yet
-    flip_prob: float = 0.5             # not read yet
-    scale_min: float = 0.8             # not read yet
-    scale_max: float = 1.1             # not read yet
-    composed_warp: bool = False        # not read yet
+    # Host augmentation (data.augmentation).
+    center_trans_max: float = 40.0
+    rotate_max_deg: float = 10.0
+    flip_prob: float = 0.5
+    scale_min: float = 0.8
+    scale_max: float = 1.1
+    # One linear warp for rotate + scale + crop + flip in place of the
+    # cubic rotation and the linear resize (data.augmentation).
+    composed_warp: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

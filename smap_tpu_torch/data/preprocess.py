@@ -1,10 +1,10 @@
 """Image preprocessing (counterpart of ``smap_tpu/data/preprocess.py`` and
 ``smap_tpu/inference.py:prepare_images``).
 
-Host side: the letterbox resize and the I420 packing use OpenCV, imported
-inside the functions so that the module imports without it. Device side:
-``i420_to_bgr`` and ``prepare_images`` run on whatever device the frames
-are on.
+Host side, numpy: the letterbox (``data.image.resize_linear``, OpenCV's
+``INTER_LINEAR`` bit for bit), the I420 packing and ``normalize_image``.
+Device side: ``i420_to_bgr``, ``prepare_images`` and
+``device_letterbox_normalize`` run on whatever device the frames are on.
 """
 
 from __future__ import annotations
@@ -13,10 +13,15 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from smap_tpu_torch.camera import default_scale_dict
 from smap_tpu_torch.config import INPUT_SHAPE, PIXEL_MEANS_BGR, PIXEL_STDS_BGR
+from smap_tpu_torch.data.image import bgr_to_i420, resize_linear
 from smap_tpu_torch.runtime import device_constant
+
+__all__ = ["bgr_to_i420", "device_letterbox_normalize", "i420_to_bgr",
+           "letterbox_image", "normalize_image", "prepare_images"]
 
 
 def letterbox_image(img_bgr: np.ndarray, net_hw: Tuple[int, int] = INPUT_SHAPE
@@ -29,12 +34,10 @@ def letterbox_image(img_bgr: np.ndarray, net_hw: Tuple[int, int] = INPUT_SHAPE
     Returns:
       (padded uint8 [net_h, net_w, 3], scale dict with default intrinsics).
     """
-    import cv2
-
     net_h, net_w = net_hw
     img_h, img_w = img_bgr.shape[:2]
     scale = min(net_w / img_w, net_h / img_h)
-    resized = cv2.resize(img_bgr, (0, 0), fx=scale, fy=scale)
+    resized = resize_linear(img_bgr, scale, scale)
     rh, rw = resized.shape[:2]
     out = np.full((net_h, net_w, 3), 128, np.uint8)
     if rw < net_w:
@@ -48,11 +51,11 @@ def letterbox_image(img_bgr: np.ndarray, net_hw: Tuple[int, int] = INPUT_SHAPE
     return out, default_scale_dict(img_w, img_h, net_w, net_h)
 
 
-def bgr_to_i420(img_bgr_u8: np.ndarray) -> np.ndarray:
-    """[H, W, 3] uint8 BGR -> packed planar I420 [3H/2, W] uint8."""
-    import cv2
-
-    return cv2.cvtColor(img_bgr_u8, cv2.COLOR_BGR2YUV_I420)
+def normalize_image(img_bgr_u8: np.ndarray) -> np.ndarray:
+    """[0, 255] uint8 BGR -> normalized float32, on the host."""
+    means = np.asarray(PIXEL_MEANS_BGR, np.float32)
+    stds = np.asarray(PIXEL_STDS_BGR, np.float32)
+    return (img_bgr_u8.astype(np.float32) / 255.0 - means) / stds
 
 
 def i420_to_bgr(packed_u8: torch.Tensor) -> torch.Tensor:
@@ -97,3 +100,33 @@ def prepare_images(images: torch.Tensor) -> torch.Tensor:
     means = device_constant(PIXEL_MEANS_BGR, torch.float32, images.device)
     stds = device_constant(PIXEL_STDS_BGR, torch.float32, images.device)
     return (images / 255.0 - means) / stds
+
+
+def device_letterbox_normalize(img_bgr_u8: torch.Tensor,
+                               src_hw: Tuple[int, int],
+                               net_hw: Tuple[int, int] = INPUT_SHAPE
+                               ) -> torch.Tensor:
+    """Letterbox and normalize one ``[H, W, 3]`` uint8 frame on its device:
+    half-pixel bilinear without antialiasing (the source clamped at its
+    edges), gray (128) bars, then the BGR normalization. Returns
+    ``[net_h, net_w, 3]`` float32."""
+    net_h, net_w = net_hw
+    img_h, img_w = src_hw
+    scale = min(net_w / img_w, net_h / img_h)
+    rw, rh = round(img_w * scale), round(img_h * scale)
+    x = img_bgr_u8.float().permute(2, 0, 1)[None]
+    x = F.interpolate(x, size=(rh, rw), mode="bilinear", align_corners=False,
+                      antialias=False)[0].permute(1, 2, 0)
+    canvas = torch.full((net_h, net_w, 3), 128.0, dtype=torch.float32,
+                        device=x.device)
+    if rw < net_w:
+        ml = (net_w - rw) // 2
+        canvas[:min(rh, net_h), ml:ml + rw] = x[:net_h]
+    elif rh < net_h:
+        mu = (net_h - rh) // 2
+        canvas[mu:mu + rh, :min(rw, net_w)] = x[:, :net_w]
+    else:
+        canvas[:rh, :rw] = x[:net_h, :net_w]
+    means = device_constant(PIXEL_MEANS_BGR, torch.float32, x.device)
+    stds = device_constant(PIXEL_STDS_BGR, torch.float32, x.device)
+    return (canvas / 255.0 - means) / stds

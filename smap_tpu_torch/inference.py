@@ -22,7 +22,9 @@ import torch
 
 from smap_tpu_torch.config import (FLIP_ORDER, NUM_JOINTS, PAF_FLIP_CHANNEL,
                                    ROOT_IDX, Config)
-from smap_tpu_torch.data.preprocess import prepare_images
+from smap_tpu_torch.data.image import imread
+from smap_tpu_torch.data.preprocess import letterbox_image, prepare_images
+from smap_tpu_torch.evaluation.register import register_pred
 from smap_tpu_torch.models.layers import to_compute_dtype
 from smap_tpu_torch.models.quantize import (calibrate_activation_scales,
                                             check_static_scales,
@@ -376,6 +378,117 @@ class SMAPInference:
         return pairs
 
 
+def image_paths(image_dir: str) -> List[str]:
+    """The jpg / png / jpeg files under ``image_dir``, recursively,
+    sorted."""
+    paths: List[str] = []
+    for ext in ("jpg", "png", "jpeg"):
+        paths.extend(glob.glob(os.path.join(image_dir, f"**/*.{ext}"),
+                               recursive=True))
+    return sorted(paths)
+
+
+def read_frame(path: str) -> np.ndarray:
+    """``data.image.imread`` that raises on a missing or unreadable file."""
+    img = imread(path)
+    if img is None:
+        raise FileNotFoundError(f"cannot read image {path}")
+    return img
+
+
+def run_labeled_inference(dataset, engine: SMAPInference,
+                          mode: str = "generate_result",
+                          batch_size: int = 16, root_idx: int = ROOT_IDX,
+                          shard: int = 0, num_shards: int = 1,
+                          gather: bool = False) -> Dict[str, Any]:
+    """Inference over a labeled ``data.datasets.JointDataset`` (the
+    ``generate_result`` and ``generate_train`` modes).
+
+    Persons whose ground-truth root has visibility <= 1 are dropped; the
+    intrinsics come from the ground-truth rows where they carry them;
+    predictions are registered to the ground truth
+    (``evaluation.register.register_pred``) before they are written.
+    ``generate_train`` keeps one pair per registered person with a root.
+    ``shard`` / ``num_shards`` take a contiguous slice of the dataset.
+    ``gather=True`` merges the shards of all processes: a no-op in one
+    process; with several (``torch.distributed``) it raises, since the
+    port's cross-process gather is not written yet.
+    """
+    if mode not in ("generate_result", "generate_train"):
+        raise ValueError(f"mode {mode!r}")
+    if (gather and torch.distributed.is_available()
+            and torch.distributed.is_initialized()
+            and torch.distributed.get_world_size() > 1):
+        raise NotImplementedError("gather=True across processes is not "
+                                  "ported yet")
+    result: Dict[str, Any] = {"model_pattern": "MIX", "3d_pairs": []}
+    n = len(dataset)
+    per = -(-n // num_shards)
+    indices = list(range(shard * per, min(n, (shard + 1) * per)))
+    # run_stream keeps one batch in flight: the next batch's samples are
+    # read and the last one's results registered while it runs.
+    meta = collections.deque()
+
+    def batches():
+        for start in range(0, len(indices), batch_size):
+            idx = indices[start:start + batch_size]
+            samples = [dataset.get_eval_sample(i) for i in idx]
+            imgs = np.stack([s[0] for s in samples])
+            if len(idx) < batch_size:    # pad the tail batch
+                imgs = np.concatenate(
+                    [imgs, np.zeros((batch_size - len(idx), *imgs.shape[1:]),
+                                    imgs.dtype)])
+            scales, gt_list = [], []
+            for s in samples:
+                bodys, scale = s[1], dict(s[3])
+                valid = bodys[bodys[:, root_idx, 3] > 1]
+                gt_list.append(valid)
+                if len(valid) and valid.shape[-1] >= 11:
+                    scale.update(f_x=valid[0, 0, 7], f_y=valid[0, 0, 8],
+                                 cx=valid[0, 0, 9], cy=valid[0, 0, 10])
+                elif len(valid) and valid.shape[-1] >= 8:
+                    # Rows 8-10 wide carry only f_x (column 7).
+                    scale.update(f_x=valid[0, 0, 7], f_y=valid[0, 0, 7],
+                                 cx=scale["img_width"] / 2,
+                                 cy=scale["img_height"] / 2)
+                else:
+                    scale.update(f_x=scale["img_width"],
+                                 f_y=scale["img_width"],
+                                 cx=scale["img_width"] / 2,
+                                 cy=scale["img_height"] / 2)
+                scales.append(scale)
+            scales += [scales[-1]] * (batch_size - len(idx))
+            meta.append((idx, samples, gt_list))
+            yield imgs, scales
+
+    for res in engine.run_stream(batches()):
+        idx, samples, gt_list = meta.popleft()
+        res_np = {k: v.cpu().numpy() for k, v in res._asdict().items()}
+        for j in range(len(idx)):
+            gt = gt_list[j]
+            if len(gt) == 0:
+                continue
+            m = int(res_np["count"][j])
+            new2, new3, newd = register_pred(
+                res_np["bodies_2d"][j, :m], res_np["bodies_3d"][j, :m],
+                res_np["root_depth"][j, :m], gt, root_idx=root_idx)
+            if mode == "generate_train":
+                for p in range(len(new3)):
+                    if new3[p, root_idx, 3] != 0:
+                        result["3d_pairs"].append({
+                            "pred_3d": new3[p].tolist(),
+                            "pred_2d": new2[p].tolist(),
+                            "gt_3d": gt[p][:, 4:7].tolist(),
+                            "root_d": float(newd[p])})
+            else:
+                result["3d_pairs"].append({
+                    "pred_2d": new2.tolist(), "pred_3d": new3.tolist(),
+                    "root_d": newd.tolist(), "image_path": samples[j][2],
+                    "gt_3d": gt[:, :, 4:].tolist(),
+                    "gt_2d": gt[:, :, :4].tolist()})
+    return result
+
+
 def run_inference(image_dir: str, state_dict: Mapping[str, torch.Tensor],
                   cfg: Config = Config(),
                   refine_state_dict: Optional[Mapping[str, torch.Tensor]] = None,
@@ -385,18 +498,13 @@ def run_inference(image_dir: str, state_dict: Mapping[str, torch.Tensor],
                   fuse_bottleneck: bool = False, calibration_batches=None,
                   adaptive_capacities: Optional[Sequence[int]] = None
                   ) -> Dict[str, Any]:
-    """Inference over a directory of images (jpg / png / jpeg, recursive):
-    letterbox on the host (OpenCV), run the pipeline, return (and
-    optionally write) the reference's result JSON. ``quantized``,
-    ``calibration_batches``, ``fuse_stem``, ``fuse_bottleneck`` and
-    ``adaptive_capacities`` go to ``SMAPInference``."""
-    from smap_tpu_torch.data.preprocess import letterbox_image
-
-    paths: List[str] = []
-    for ext in ("jpg", "png", "jpeg"):
-        paths.extend(glob.glob(os.path.join(image_dir, f"**/*.{ext}"),
-                               recursive=True))
-    paths.sort()
+    """Inference over a directory of images (jpg / png / jpeg, recursive;
+    ``data.image.imread``: PNG needs no OpenCV): letterbox on the host,
+    run the pipeline, return (and optionally write) the reference's result
+    JSON. ``quantized``, ``calibration_batches``, ``fuse_stem``,
+    ``fuse_bottleneck`` and ``adaptive_capacities`` go to
+    ``SMAPInference``."""
+    paths = image_paths(image_dir)
     engine = SMAPInference(state_dict, cfg, refine_state_dict, do_flip,
                            device=device, quantized=quantized,
                            fuse_stem=fuse_stem,
@@ -407,14 +515,11 @@ def run_inference(image_dir: str, state_dict: Mapping[str, torch.Tensor],
     chunks = collections.deque()
 
     def batches():
-        import cv2
-
         for start in range(0, len(paths), batch_size):
             chunk = paths[start:start + batch_size]
             imgs, scales = [], []
             for p in chunk:
-                img, scale = letterbox_image(cv2.imread(p, cv2.IMREAD_COLOR),
-                                             cfg.input_shape)
+                img, scale = letterbox_image(read_frame(p), cfg.input_shape)
                 imgs.append(img)
                 scales.append(scale)
             # Pad the tail batch to the batch size.

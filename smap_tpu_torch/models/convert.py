@@ -113,3 +113,15 @@ def refinenet_state_dict(variables: Mapping[str, Any]
             ] = _tensor(arr)
         out[f"block.layer{n}.1.num_batches_tracked"] = _zero_count()
     return out
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A ``.pth`` state_dict as the reference saves it: the model's tensors,
+    or a dict holding them under ``"model"``, with any ``module.`` prefix
+    (``DistributedDataParallel``) stripped. Loaded on the CPU with
+    ``weights_only=True``: a checkpoint is data, never code."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(state, dict) and "model" in state:
+        state = state["model"]
+    return {k[len("module."):] if k.startswith("module.") else k: v
+            for k, v in state.items()}

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import os
 from typing import Dict, Iterator, Union
 
 import torch
@@ -66,6 +67,28 @@ def no_tf32() -> Iterator[None]:
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+@contextlib.contextmanager
+def deterministic_algorithms(on: bool = True) -> Iterator[None]:
+    """PyTorch's deterministic algorithms, and cuDNN's, inside the block
+    when ``on`` (an op with none warns), restored after it: a training run
+    then repeats bit for bit, where the card's default backward sums some
+    gradients with atomics in a run-dependent order."""
+    if not on:
+        yield
+        return
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    saved = (torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled(),
+             torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(saved[0], warn_only=saved[1])
+        torch.backends.cudnn.deterministic = saved[2]
 
 
 @functools.lru_cache(maxsize=None)

@@ -16,7 +16,7 @@ import dataclasses
 import logging
 import os
 import time
-from typing import Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import torch
 
@@ -80,6 +80,16 @@ class CheckpointManager:
         os.replace(tmp, self._path(step))
         for old in self.all_steps()[:-self.max_to_keep]:
             os.remove(self._path(old))
+
+    def model_state_dict(self, step: Optional[int] = None
+                         ) -> Dict[str, torch.Tensor]:
+        """The model's state_dict of checkpoint ``step`` (the latest by
+        default), on the CPU; raises FileNotFoundError with none."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {self.directory}")
+        return torch.load(self._path(step), map_location="cpu",
+                          weights_only=True)["model"]
 
     def restore(self, state: TrainState, step: Optional[int] = None
                 ) -> TrainState:

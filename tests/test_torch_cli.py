@@ -1,0 +1,431 @@
+"""The port's entry points on the CPU (``--device cpu``) at a small
+``Config`` patched into each CLI module by the test: the serve loop's frame
+sources, the serve CLI and ``test_smap`` against the in-process engine,
+``train_smap`` against ``Trainer.fit`` (with a checkpoint and a resume),
+and the RefineNet CLIs run as ``python -m`` processes."""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import cv2
+import numpy as np
+import pytest
+import torch
+
+from smap_tpu_torch.config import (Config, ModelConfig, PostProcessConfig,
+                                   TrainConfig)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+NET_HW, OUT_HW = (64, 96), (16, 24)
+SMALL = Config(model=ModelConfig(stage_num=1, trunk_width=8,
+                                 upsample_channels=16, output_shape=OUT_HW,
+                                 compute_dtype="float32"),
+               post=PostProcessConfig(max_peaks=31, assoc_peaks=8),
+               train=TrainConfig(max_people=4),
+               input_shape=NET_HW, output_shape=OUT_HW)
+LADDER = "4,8"
+
+
+def _touch(path):
+    cv2.imwrite(str(path), np.zeros((8, 8, 3), np.uint8))
+
+
+def _backdate(path, seconds=60.0):
+    past = time.time() - seconds
+    os.utime(path, (past, past))
+
+
+def test_iter_frames_oneshot(tmp_path):
+    from smap_tpu_torch.serve import iter_frames
+
+    for name in ("b.png", "a.jpg", "sub/c.jpeg"):
+        (tmp_path / name).parent.mkdir(exist_ok=True)
+        _touch(tmp_path / name)
+    got = list(iter_frames(str(tmp_path), watch=False))
+    assert [os.path.relpath(p, tmp_path) for p in got] == [
+        "a.jpg", "b.png", "sub/c.jpeg"]
+
+
+def test_iter_frames_watch_yields_new_and_idle(tmp_path):
+    from smap_tpu_torch.serve import iter_frames
+
+    _touch(tmp_path / "a.png")
+    _backdate(tmp_path / "a.png")
+    gen = iter_frames(str(tmp_path), watch=True, poll_s=0.01)
+    assert os.path.basename(next(gen)) == "a.png"
+    assert next(gen) is None           # an idle poll
+    _touch(tmp_path / "b.png")
+    _backdate(tmp_path / "b.png")
+    vals = [next(gen) for _ in range(3)]
+    assert [os.path.basename(v) for v in vals if v is not None] == ["b.png"]
+
+
+def test_iter_frames_watch_settles_and_evicts(tmp_path, monkeypatch):
+    import smap_tpu_torch.serve as serve
+
+    monkeypatch.setattr(serve.time, "sleep", lambda s: None)
+    gen = serve.iter_frames(str(tmp_path), watch=True, poll_s=5.0)
+    _touch(tmp_path / "a.png")
+    assert next(gen) is None           # still being written
+    _backdate(tmp_path / "a.png")
+    assert os.path.basename(next(gen)) == "a.png"
+    os.unlink(tmp_path / "a.png")
+    assert next(gen) is None           # evicted from the dedup set
+    _touch(tmp_path / "a.png")
+    _backdate(tmp_path / "a.png")
+    assert os.path.basename(next(gen)) == "a.png"
+
+
+def test_iter_video_frames(tmp_path, monkeypatch):
+    """Every stride-th frame, named by its index; a source that does not
+    open exits; without OpenCV, an ImportError naming the file."""
+    import builtins
+
+    from smap_tpu_torch.serve import iter_video_frames
+
+    vid = tmp_path / "clip.avi"
+    writer = cv2.VideoWriter(str(vid), cv2.VideoWriter_fourcc(*"MJPG"), 10,
+                             (64, 48))
+    assert writer.isOpened()
+    rng = np.random.RandomState(3)
+    for _ in range(5):
+        writer.write(rng.randint(0, 255, (48, 64, 3), np.uint8))
+    writer.release()
+    got = list(iter_video_frames(str(vid), stride=2))
+    assert [n.split("#")[1] for n, _ in got] == [
+        "frame000000", "frame000002", "frame000004"]
+    assert all(f.shape == (48, 64, 3) for _, f in got)
+    with pytest.raises(SystemExit):
+        list(iter_video_frames(str(tmp_path / "missing.avi")))
+    real_import = builtins.__import__
+
+    def no_cv2(name, *args, **kwargs):
+        if name == "cv2":
+            raise ImportError("No module named 'cv2'")
+        return real_import(name, *args, **kwargs)
+
+    monkeypatch.setattr(builtins, "__import__", no_cv2)
+    with pytest.raises(ImportError, match="clip.avi.*OpenCV"):
+        list(iter_video_frames(str(vid)))
+
+
+@pytest.fixture
+def people_in_every_frame(monkeypatch):
+    """The engine's forward plus the ideal maps of two people: random
+    weights alone decode nobody."""
+    from scenes import make_scene, render_outputs
+
+    from smap_tpu_torch.inference import SMAPInference
+
+    K, people = make_scene(np.random.RandomState(0), num_people=2,
+                           img_w=NET_HW[1], img_h=NET_HW[0], f=100.0)
+    scene = [torch.from_numpy(m.astype(np.float32)) for m in render_outputs(
+        people, K, NET_HW[1], NET_HW[0], *OUT_HW, 4, 1.0, 0.0, 0.0,
+        sigma=0.8)]
+    real = SMAPInference.forward
+
+    def forward(self, images):
+        return tuple(m + s for m, s in zip(real(self, images), scene))
+
+    monkeypatch.setattr(SMAPInference, "forward", forward)
+
+
+@pytest.fixture
+def small_cli(monkeypatch):
+    """Every CLI module builds SMALL; returns SMALL's weights, with the
+    BatchNorm scales damped so that the maps stay far below the NMS
+    threshold."""
+    import smap_tpu_torch.serve as serve
+    import smap_tpu_torch.test_smap as test_smap
+    import smap_tpu_torch.train_smap as train_smap
+    from smap_tpu_torch.models.smap import init_smap
+
+    for mod in (serve, test_smap, train_smap):
+        monkeypatch.setattr(mod, "Config", lambda: SMALL)
+    return {k: v * 0.3 if k.endswith("bn.weight") else v
+            for k, v in init_smap(SMALL.model, seed=0).state_dict().items()}
+
+
+def _frames_dir(path, n=5, seed=0):
+    path.mkdir()
+    rng = np.random.RandomState(seed)
+    for i in range(n):
+        h, w = rng.randint(40, 90), rng.randint(50, 130)
+        cv2.imwrite(str(path / f"f{i}.png"),
+                    rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
+    return str(path)
+
+
+@pytest.mark.parametrize("mode", [[], ["--folded", "--fuse-stem",
+                                       "--fuse-bottleneck"],
+                                  ["--int8"], ["--int8-static"]])
+def test_serve_cli_matches_run_batch(tmp_path, small_cli,
+                                     people_in_every_frame, mode):
+    """One JSON line per frame (the tail batch padded), each the item
+    run_batch gives for the same I420 frame, in every serving mode."""
+    from smap_tpu_torch import serve
+    from smap_tpu_torch.data.image import imread
+    from smap_tpu_torch.inference import SMAPInference, image_paths
+
+    src = _frames_dir(tmp_path / "frames")
+    pth = tmp_path / "smap.pth"
+    torch.save({"model": {f"module.{k}": v for k, v in small_cli.items()}},
+               pth)
+    out = tmp_path / "poses.jsonl"
+    summary = serve.main(["--source", src, "-p", str(pth), "--out", str(out),
+                          "--batch_size", "2", "--adaptive-capacities",
+                          LADDER, "--device", "cpu", *mode])
+    lines = [json.loads(l) for l in out.read_text().splitlines()]
+    assert summary["frames"] == len(lines) == 5
+
+    paths = image_paths(src)
+    wire = [serve.wire_frame(imread(p), SMALL) for p in paths]
+    quantized = {"--folded": "folded", "--int8": True,
+                 "--int8-static": "static"}.get(mode[0] if mode else "",
+                                                False)
+    calib = ([np.stack([w[0] for w in wire[:2]])]
+             if quantized == "static" else None)
+    engine = SMAPInference(small_cli, SMALL, device="cpu",
+                           quantized=quantized, calibration_batches=calib,
+                           fuse_stem="--fuse-stem" in mode,
+                           fuse_bottleneck="--fuse-bottleneck" in mode)
+    want = []
+    for start in range(0, 5, 2):
+        chunk = wire[start:start + 2]
+        res = engine.run_batch(np.stack([c[0] for c in chunk]),
+                               [c[1] for c in chunk])
+        want += engine.results_to_pairs(res, paths[start:start + 2])
+    assert lines == json.loads(json.dumps(want))
+    assert all(len(l["pred_3d"]) == 2 for l in lines)
+
+
+def test_serve_cli_rejects_bad_flags(tmp_path, small_cli):
+    from smap_tpu_torch import serve
+
+    for flags in (["--int8", "--folded"], ["--fuse-stem"]):
+        with pytest.raises(SystemExit):
+            serve.main(["--source", str(tmp_path), "--device", "cpu",
+                        *flags])
+    with pytest.raises(SystemExit, match="No such checkpoint"):
+        serve.main(["--source", str(tmp_path), "-p", "missing.pth",
+                    "--device", "cpu"])
+
+
+def test_test_smap_run_inference(tmp_path, small_cli, people_in_every_frame):
+    """-t run_inference writes run_inference's JSON under the reference's
+    file name."""
+    from smap_tpu_torch import test_smap
+    from smap_tpu_torch.inference import run_inference
+
+    src = _frames_dir(tmp_path / "frames", seed=1)
+    pth = tmp_path / "smap.pth"
+    torch.save(small_cli, pth)
+    out = test_smap.main(["-p", str(pth), "--dataset_path", src,
+                          "--batch_size", "2", "--output-dir",
+                          str(tmp_path / "res"), "--json_name", "x",
+                          "--device", "cpu"])
+    assert os.path.basename(out) == "stage3_root2_run_inference_test_x.json"
+    want = run_inference(src, small_cli, SMALL, batch_size=2, device="cpu")
+    with open(out) as f:
+        assert json.load(f) == json.loads(json.dumps(want))
+    assert sum(len(p["pred_3d"]) for p in want["3d_pairs"]) == 10
+
+
+@pytest.mark.parametrize("mode", ["generate_result", "generate_train"])
+def test_test_smap_generate_modes(tmp_path, small_cli, people_in_every_frame,
+                                  mode):
+    """The generate modes read --test-json / --test-root and write
+    run_labeled_inference's JSON."""
+    from smap_tpu_torch import test_smap
+    from smap_tpu_torch.data.datasets import JointDataset, load_annotations
+    from smap_tpu_torch.inference import SMAPInference, run_labeled_inference
+
+    src = _frames_dir(tmp_path / "frames", n=3, seed=2)
+    records = []
+    rng = np.random.RandomState(4)
+    for i in range(3):
+        img = cv2.imread(os.path.join(src, f"f{i}.png"))
+        h, w = img.shape[:2]
+        bodys = np.zeros((2, 15, 11))
+        bodys[..., 0] = rng.uniform(0, w, (2, 15))
+        bodys[..., 1] = rng.uniform(0, h, (2, 15))
+        bodys[..., 2:4] = [300.0, 2.0]
+        bodys[..., 7:] = [100.0, 100.0, w / 2, h / 2]
+        records.append({"dataset": "MUPOTS", "img_paths": f"f{i}.png",
+                        "img_height": h, "img_width": w, "isValidation": 1,
+                        "bodys": bodys.tolist()})
+    annot = tmp_path / "annot.json"
+    annot.write_text(json.dumps({"root": records}))
+    pth = tmp_path / "smap.pth"
+    torch.save(small_cli, pth)
+    out = test_smap.main(["-t", mode, "-d", "generation", "-p", str(pth),
+                          "--test-json", str(annot), "--test-root", src,
+                          "--batch_size", "2", "--output-dir",
+                          str(tmp_path / "res"), "--device", "cpu"])
+    assert os.path.basename(out) == f"stage3_root2_{mode}_generation.json"
+    stage = "generation" if mode == "generate_train" else "test"
+    dataset = JointDataset(load_annotations(str(annot)), {"MUPOTS": src},
+                           SMALL, stage)
+    engine = SMAPInference(small_cli, SMALL, device="cpu")
+    want = run_labeled_inference(dataset, engine, mode=mode, batch_size=2)
+    with open(out) as f:
+        assert json.load(f) == json.loads(json.dumps(want))
+
+
+def _train_set(tmp_path):
+    """Six PNG frames, MuCo and COCO, as unified annotation JSONs."""
+    rng = np.random.RandomState(5)
+    paths = {}
+    for name in ("MUCO", "COCO"):
+        root = tmp_path / name.lower()
+        root.mkdir()
+        records = []
+        for i in range(3):
+            h, w = rng.randint(60, 120), rng.randint(80, 160)
+            cv2.imwrite(str(root / f"f{i}.png"),
+                        rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
+            bodys = np.zeros((2, 15, 11))
+            bodys[..., 0] = rng.uniform(0, w, (2, 15))
+            bodys[..., 1] = rng.uniform(0, h, (2, 15))
+            bodys[..., 2] = rng.uniform(200, 400, (2, 15))
+            bodys[..., 3] = 2
+            bodys[..., 4:7] = rng.randn(2, 15, 3) * 30
+            bodys[..., 7:] = [500.0, 500.0, w / 2, h / 2]
+            records.append({"dataset": name, "img_paths": f"f{i}.png",
+                            "img_height": h, "img_width": w,
+                            "isValidation": 0, "bodys": bodys.tolist()})
+        annot = tmp_path / f"{name.lower()}.json"
+        annot.write_text(json.dumps({"root": records}))
+        paths[name] = (str(annot), str(root))
+    return paths
+
+
+def _losses(out_dir):
+    with open(os.path.join(out_dir, "tb_dir", "metrics.jsonl")) as f:
+        return [{k: v for k, v in json.loads(l).items() if k != "time"}
+                for l in f]
+
+
+def test_train_smap_fits_checkpoints_and_resumes(tmp_path, small_cli):
+    """Two steps (with --deterministic, which is undone after), a
+    checkpoint, then --resume to step 3 (with a worker process): the
+    losses of Trainer.fit on the same iterator, step for step; test_smap
+    --ckpt-dir then serves the last checkpoint."""
+    from smap_tpu_torch import test_smap, train_smap
+    from smap_tpu_torch.data.datasets import (JointDataset, load_annotations,
+                                              train_iterator)
+    from smap_tpu_torch.train.engine import Trainer, TrainerConfig
+
+    data = _train_set(tmp_path)
+    flags = ["--muco-json", data["MUCO"][0], "--muco-root", data["MUCO"][1],
+             "--coco-json", data["COCO"][0], "--coco-root", data["COCO"][1],
+             "--batch-per-device", "2", "--log-every", "1", "--seed", "1",
+             "--output-dir", str(tmp_path / "run"), "--device", "cpu"]
+    train_smap.main([*flags, "--max-steps", "2", "--deterministic"])
+    assert not torch.are_deterministic_algorithms_enabled()
+    assert sorted(os.listdir(tmp_path / "run" / "checkpoints")) == ["2.pt"]
+    state = train_smap.main([*flags, "--max-steps", "3", "--resume",
+                             "--num-workers", "1"])
+    assert state.step == 3
+
+    records = (load_annotations(data["COCO"][0])
+               + load_annotations(data["MUCO"][0]))
+    dataset = JointDataset(records, {k: v[1] for k, v in data.items()},
+                           SMALL, "train", with_augmentation=True)
+    trainer = Trainer(SMALL, TrainerConfig(output_dir=str(tmp_path / "ref"),
+                                           log_every=1, seed=1),
+                      device="cpu")
+    trainer.fit(train_iterator(dataset, 2, 3, seed=1),
+                state=trainer.init_state(1), max_steps=3)
+    trainer.close()
+    got, want = _losses(tmp_path / "run"), _losses(tmp_path / "ref")
+    assert [r["step"] for r in got] == [1, 2, 3]
+    assert got == want
+
+    frames = _frames_dir(tmp_path / "frames", n=2, seed=6)
+    out = test_smap.main(["--ckpt-dir", str(tmp_path / "run"),
+                          "--dataset_path", frames, "--batch_size", "2",
+                          "--output-dir", str(tmp_path / "res"),
+                          "--device", "cpu"])
+    with open(out) as f:
+        assert len(json.load(f)["3d_pairs"]) == 2
+    with pytest.raises(SystemExit, match="no checkpoints"):
+        test_smap.main(["--ckpt-dir", str(tmp_path / "none"),
+                        "--dataset_path", frames, "--device", "cpu"])
+
+
+def _run_module(module, *args):
+    """``python -m module args`` on one CPU thread (the float sums of a
+    matrix product depend on the thread count)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    return subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT,
+                          env=env, capture_output=True, text=True,
+                          timeout=600)
+
+
+@pytest.mark.parametrize("module", ["serve", "test_smap", "train_smap"])
+def test_entry_points_run_as_modules(module):
+    out = _run_module(f"smap_tpu_torch.{module}", "--help")
+    assert out.returncode == 0, out.stderr
+    assert f"python -m smap_tpu_torch.{module}" in out.stdout
+    assert "--device" in out.stdout
+
+
+def test_refinenet_clis(tmp_path):
+    """train_refinenet saves one snapshot an epoch; test_refinenet
+    evaluates each and picks the best: as train_refinenet and
+    evaluate_refinenet in this process compute them."""
+    from smap_tpu_torch.config import RefineNetConfig
+    from smap_tpu_torch.data.datasets import P2PDataset
+    from smap_tpu_torch.models.convert import load_torch_checkpoint
+    from smap_tpu_torch.models.refinenet import RefineNet
+    from smap_tpu_torch.train.refine import (evaluate_refinenet,
+                                             train_refinenet)
+
+    rng = np.random.RandomState(0)
+    pairs = []
+    for _ in range(96):
+        gt = rng.randn(15, 3) * 20
+        pred3 = np.concatenate([gt + rng.randn(15, 3), np.ones((15, 1))], -1)
+        pred2 = np.concatenate([rng.rand(15, 2) * 400, np.zeros((15, 1)),
+                                np.ones((15, 1))], -1)
+        pairs.append({"pred_3d": pred3.tolist(), "pred_2d": pred2.tolist(),
+                      "gt_3d": gt.tolist(), "root_d": 300.0})
+    pj = tmp_path / "pairs.json"
+    pj.write_text(json.dumps({"3d_pairs": pairs}))
+    snaps = tmp_path / "snaps"
+    out = _run_module("smap_tpu_torch.train_refinenet", "--pairs-json",
+                      str(pj), "--epochs", "2", "--output-dir", str(snaps),
+                      "--device", "cpu")
+    assert out.returncode == 0, out.stderr
+    assert sorted(os.listdir(snaps)) == ["epoch_0.pth", "epoch_1.pth"]
+    out = _run_module("smap_tpu_torch.test_refinenet", "--pairs-json",
+                      str(pj), "--snapshot-dir", str(snaps), "--device",
+                      "cpu")
+    assert out.returncode == 0, out.stderr
+
+    dataset = P2PDataset(str(pj))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        want = train_refinenet(dataset, RefineNetConfig(), num_epochs=2,
+                               device="cpu", log_fn=lambda s: None)
+    finally:
+        torch.set_num_threads(threads)
+    lines = out.stdout.strip().splitlines()
+    errors = {}
+    for epoch, model in want.items():
+        saved = load_torch_checkpoint(str(snaps / f"epoch_{epoch}.pth"))
+        for k, v in model.state_dict().items():
+            torch.testing.assert_close(saved[k], v, rtol=1e-6, atol=1e-7)
+        loaded = RefineNet(RefineNetConfig())
+        loaded.load_state_dict(saved)
+        errors[epoch] = evaluate_refinenet(loaded, dataset)[1]
+        assert lines[epoch].startswith(
+            f"epoch {epoch}: mean {errors[epoch]:.4f} cm")
+    best = min(errors, key=errors.get)
+    assert lines[-1] == f"best epoch: {best} ({errors[best]:.4f} cm)"

@@ -1,6 +1,6 @@
 """The port imports no JAX: every module of the serving and training
-slices loads in a fresh interpreter without jax, flax or the JAX
-package."""
+slices and every entry point loads in a fresh interpreter without jax,
+flax, the JAX package, OpenCV or triton."""
 
 import os
 import subprocess
@@ -13,7 +13,9 @@ SLICE_MODULES = (
     "smap_tpu_torch.config",
     "smap_tpu_torch.runtime",
     "smap_tpu_torch.camera",
+    "smap_tpu_torch.data.image",
     "smap_tpu_torch.data.preprocess",
+    "smap_tpu_torch.data.augmentation",
     "smap_tpu_torch.models.layers",
     "smap_tpu_torch.models.smap",
     "smap_tpu_torch.models.refinenet",
@@ -39,6 +41,13 @@ SLICE_MODULES = (
     "smap_tpu_torch.train.step",
     "smap_tpu_torch.train.engine",
     "smap_tpu_torch.train.refine",
+    "smap_tpu_torch.evaluation",
+    "smap_tpu_torch.evaluation.register",
+    "smap_tpu_torch.serve",
+    "smap_tpu_torch.test_smap",
+    "smap_tpu_torch.train_smap",
+    "smap_tpu_torch.train_refinenet",
+    "smap_tpu_torch.test_refinenet",
 )
 
 
