@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths once on a CUDA
-card.
+"""Drive the PyTorch port's serving, training, data-parallel and
+evaluation paths once on a CUDA card.
 
     python3 chip_smoke.py          # from the repository root, one card
+    python3 chip_smoke.py --data-parallel-only   # build and phase 10 alone
 
 Phases (each prints what it measured; any failure raises and the script
 exits non-zero with no result line):
@@ -87,10 +88,31 @@ exits non-zero with no result line):
    losses of ``Trainer.fit`` on the same ``train_iterator`` in this
    process under the same deterministic algorithms;
    ``train_iterator``'s samples/s at 0 and 4 workers.
+10. data parallel and evaluation (the backend printed): (a) 2 ranks
+   (``spawn``, each with a timeout) train 3 steps at full width, global
+   batch 8 (4 a rank), under deterministic algorithms: NCCL with a card a
+   rank, or on a host with one card 2 gloo ranks sharing it plus a
+   one-rank NCCL group taking the same steps on one rank's share; after
+   every step the ranks' losses and parameters are equal; ms a step,
+   img/s, peak memory a rank, the gradient bucket's all-reduce ms (and
+   ``average_gradients``' with its flatten); a float64 step of the small
+   config in 2 ranks against 1 process on the same global batch; (b)
+   ``test_smap -t generate_result --distributed`` in 2 processes on phase
+   9's labeled frames: A and B launched in each rank, the gathered JSON
+   equal to ``run_labeled_inference`` in this process; (c)
+   ``SMAPInference(devices=...)`` over every card (two replicas of cuda:0
+   on one card) at batch 16, unfolded (A, B), folded-fused (C, D) and
+   int8-static (E), equal to one device's ``run_batch`` on the same
+   shards, img/s beside one device's; (d) ``eval_mupots`` (relative, ``--absolute``) and
+   ``eval_panoptic`` as processes on a MuPoTS-shaped sequence this script
+   writes: exact predictions score PCK 100.00, MPJPE 0.0 and ordinal
+   1.0000, perturbed ones ``MUPOTS_PINNED`` (tests/test_torch_eval.py
+   pins them to the JAX package's scripts).
 
 The last lines are the kernels' JSON summary (per kernel: times, launches
 in the main path and per forward or batch, launches in the serve CLI's
-three runs (``cli_launches``), the least time the card could
+three runs (``cli_launches``) and in phase 10's (b) and (c)
+(``dp_launches``), the least time the card could
 take at its published peaks, ``bound_ms``, with what bounds it and the share
 of it reached), the card's name and power limit (nvidia-smi), and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -106,6 +128,7 @@ import os
 import struct
 import subprocess
 import sys
+import tempfile
 import time
 import zlib
 
@@ -1316,8 +1339,8 @@ def phase_int8_serving(dev, card: str, batches):
     scene_maps = tuple(torch.from_numpy(np.stack(m)).to(dev) for m in zip(
         *[(o, z, r) for _, _, _, o, z, r in scene]))
     for j in range(3):
-        item = ladder._ladder_dispatch(scene_maps, info)
-        same(ladder._ladder_resolve(*item),
+        item = ladder._decode_dispatch([scene_maps], [info])
+        same(ladder._resolve(item),
              ladder.postprocess(scene_maps, info, capacity=full),
              f"scenes {j}")
     if ladder._spec_cap != LADDER[0]:
@@ -1949,17 +1972,9 @@ def serve_cli_modes(dev, card: str, sd_path: str, sd, frame_dir: str,
     return total
 
 
-def labeled_cli(dev, card: str, sd_path: str, sd, frame_dir: str,
-                frames) -> None:
-    """test_smap's generate modes on LABELED_FRAMES of the frames, one
-    crafted person each, against run_labeled_inference; then
-    train_refinenet for one epoch and test_refinenet on its snapshot."""
-    from smap_tpu_torch.config import Config
-    from smap_tpu_torch.data.datasets import JointDataset, load_annotations
-    from smap_tpu_torch.inference import SMAPInference, run_labeled_inference
-
-    cfg = Config()
-    rng = np.random.RandomState(7)
+def labeled_annotations(rng: np.random.RandomState, frame_dir: str) -> str:
+    """Writes ``annot.json`` beside the first LABELED_FRAMES frames, one
+    crafted person each; returns its path."""
     h, w = FRAME_HW
     records = []
     for i in range(LABELED_FRAMES):
@@ -1977,6 +1992,21 @@ def labeled_cli(dev, card: str, sd_path: str, sd, frame_dir: str,
     annot = os.path.join(frame_dir, "annot.json")
     with open(annot, "w") as f:
         json.dump({"root": records}, f)
+    return annot
+
+
+def labeled_cli(dev, card: str, sd_path: str, sd, frame_dir: str,
+                frames) -> None:
+    """test_smap's generate modes on LABELED_FRAMES of the frames, one
+    crafted person each, against run_labeled_inference; then
+    train_refinenet for one epoch and test_refinenet on its snapshot."""
+    from smap_tpu_torch.config import Config
+    from smap_tpu_torch.data.datasets import JointDataset, load_annotations
+    from smap_tpu_torch.inference import SMAPInference, run_labeled_inference
+
+    cfg = Config()
+    rng = np.random.RandomState(7)
+    annot = labeled_annotations(rng, frame_dir)
     engine = SMAPInference(sd, cfg, device=dev)
     pairs = None
     for mode, data_mode in (("generate_result", "test"),
@@ -2139,30 +2169,574 @@ def train_cli(dev, card: str, frame_dir: str) -> None:
         f"(phase 8's Trainer.fit takes {TRAIN_BATCH} a step) [{card}]")
 
 
-def phase_entry_points(dev, card: str) -> dict:
+def phase_entry_points(dev, card: str, tmp: str):
     """Phase 9: the user's entry points as processes, on PNG frames this
-    script writes. Returns the serve CLI's kernel launches summed over its
-    three modes."""
-    import tempfile
-
+    script writes under ``tmp``. Returns the serve CLI's kernel launches
+    summed over its three modes, and (the weights' path, the weights, the
+    frames' directory) for phase 10."""
     from smap_tpu_torch.config import Config
 
     frames = cli_frames(CLI_FRAMES)
     sd = perturbed_state_dict(Config().model, seed=0)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
-        frame_dir = os.path.join(tmp, "frames")
-        os.makedirs(frame_dir)
-        sd_path = os.path.join(tmp, "smap.pth")
-        torch.save({"model": sd}, sd_path)
-        paths = host_pipeline(frames, frame_dir, card)
-        launches = serve_cli_modes(dev, card, sd_path, sd, frame_dir, paths,
-                                   frames)
-        labeled_cli(dev, card, sd_path, sd, frame_dir, frames)
-        train_cli(dev, card, frame_dir)
+    frame_dir = os.path.join(tmp, "frames")
+    os.makedirs(frame_dir)
+    sd_path = os.path.join(tmp, "smap.pth")
+    torch.save({"model": sd}, sd_path)
+    paths = host_pipeline(frames, frame_dir, card)
+    launches = serve_cli_modes(dev, card, sd_path, sd, frame_dir, paths,
+                               frames)
+    labeled_cli(dev, card, sd_path, sd, frame_dir, frames)
+    train_cli(dev, card, frame_dir)
+    return launches, (sd_path, sd, frame_dir)
+
+
+# Phase 10 (data parallelism and evaluation). (a) DP_RANKS ranks train
+# DP_TRAIN_STEPS steps at full width on the global batch TRAIN_BATCH, under
+# deterministic algorithms: NCCL with a card a rank, or gloo ranks sharing
+# one card (plus a one-rank NCCL group taking one step) on a host with
+# fewer cards. Every rank's process gets DP_TIMEOUT.
+DP_RANKS = 2
+DP_TRAIN_STEPS = 3
+DP_TIMEOUT = 600
+# Two ranks against one process at the small config (1 stage, 64x96) in
+# float64 on the card: the global statistics come from all-reduced sums
+# (mean(x^2) - mean(x)^2) where one process takes cuDNN's two-pass
+# variance, and both round the maps to float32 at the model's output.
+DP_SMALL_LOSS_RTOL, DP_SMALL_GRAD_TOL = 1e-6, 1e-5
+# (b) test_smap -t generate_result in DP_RANKS processes, batch DP_BATCH.
+DP_BATCH = 4
+# (c) batches of BATCH served by each engine in turn.
+SHARD_BATCHES = 2
+# (d) a MuPoTS-shaped sequence: TS7 (1920x1080), 4 frames of 3 people, the
+# camera below. The perturbed predictions move each joint by
+# MUPOTS_NOISE_CM per axis and drop the last person of frame 1.
+MUPOTS_TS, MUPOTS_SEED, MUPOTS_NOISE_CM = 7, 0, 5.0
+MUPOTS_K = np.array([[1500.0, 0, 960], [0, 1500.0, 540], [0, 0, 1]])
+# The lines the eval CLIs print for the perturbed predictions: the JAX
+# package's scripts/eval_mupots.py and eval_panoptic.py print the same
+# (tests/test_torch_eval.py).
+MUPOTS_PINNED = {
+    "relative": ["  PCK@150mm  Total:  76.98   AUC  33.15",
+                 "  MPJPE: 19381.6 mm",
+                 "  undetected people rate: 0.1111"],
+    "absolute": ["  PCK@150mm  Total:  83.33   AUC  40.12",
+                 "  MPJPE: 19094.1 mm",
+                 "  ordinal depth accuracy: 1.0000",
+                 "  undetected people rate: 0.1111"],
+    "panoptic": ["  detection_rate: 0.8889", "  root_pck15: 0.8750",
+                 "  mpjpe_abs_cm: 7.5593", "  mpjpe_rel_cm: 10.5315",
+                 "  pck15_abs: 0.9750", "  pck15_rel: 0.7833",
+                 "  pair_reversal_rate: 0.0000"],
+}
+# And for the exact predictions.
+MUPOTS_PERFECT = {
+    "relative": ["  PCK@150mm  Total: 100.00   AUC  96.77",
+                 "  MPJPE: 0.0 mm"],
+    "absolute": ["  PCK@150mm  Total: 100.00   AUC  96.77",
+                 "  MPJPE: 0.0 mm", "  ordinal depth accuracy: 1.0000"],
+    "panoptic": ["  mpjpe_abs_cm: 0.0000", "  pck15_abs: 1.0000",
+                 "  pck15_rel: 1.0000"],
+}
+
+
+def mupots_sequence(seq_dir: str, seed: int = MUPOTS_SEED,
+                    num_frames: int = 4, num_subjects: int = 3):
+    """Writes ``annot.mat`` and ``occlusion.mat`` of a MuPoTS sequence
+    (as tests/test_mupots_data.py's ``_write_sequence``): random 3D
+    poses in mm, 3 m and more from the camera, one person in four marked
+    invalid. Returns (valid, annot2 [2, 15], univ_annot3 [3, 15]) per
+    person per frame."""
+    import scipy.io as sio
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(seq_dir)
+    annotations = np.empty((num_frames, num_subjects), object)
+    occlusions = np.empty((num_frames, num_subjects), object)
+    poses = []
+    for i in range(num_frames):
+        frame = []
+        for k in range(num_subjects):
+            valid = 1 if (i + k) % 4 != 3 else 0
+            annot3 = rng.randn(3, 17) * 200
+            annot3[2] += 3000 + 700 * k
+            annot2 = (MUPOTS_K @ (annot3 / annot3[2]))[:2]
+            cell = np.zeros((1, 1), dtype=[
+                ("annot2", object), ("univ_annot3", object),
+                ("annot3", object), ("isValidFrame", object)])
+            cell[0, 0]["annot2"] = annot2
+            cell[0, 0]["univ_annot3"] = annot3
+            cell[0, 0]["annot3"] = annot3
+            cell[0, 0]["isValidFrame"] = np.array([[valid]])
+            annotations[i, k] = cell
+            occlusions[i, k] = np.zeros((17, 1))
+            frame.append((valid, annot2[:, :15], annot3[:, :15]))
+        poses.append(frame)
+    sio.savemat(os.path.join(seq_dir, "annot.mat"),
+                {"annotations": annotations})
+    sio.savemat(os.path.join(seq_dir, "occlusion.mat"),
+                {"occlusion_labels": occlusions})
+    return poses
+
+
+def mupots_result(poses, perturb: bool) -> dict:
+    """A ``generate_result`` JSON for the sequence: each valid person's
+    prediction in the network's joint order, 2D in the 832x512 letterbox,
+    3D in cm, with its ground truth rows ([X, Y, Z, fx, fy, cx, cy] in cm,
+    [x, y, Z, v]); exact, or ``perturb``-ed by seeded noise with one person
+    undetected."""
+    from smap_tpu_torch.evaluation.mupots import MPI_TEST_ORDER
+
+    rng = np.random.RandomState(MUPOTS_SEED + 1)
+    inv = np.argsort(np.asarray(MPI_TEST_ORDER))
+    scale = min(832 / 1920, 512 / 1080)
+    pad_y = (512 - 1080 * scale) // 2
+    intrinsics = [MUPOTS_K[0, 0], MUPOTS_K[1, 1], MUPOTS_K[0, 2],
+                  MUPOTS_K[1, 2]]
+    pairs = []
+    for i, frame in enumerate(poses):
+        valid = [p for p in frame if p[0]]
+        gt3, gt2, pred2, pred3 = [], [], [], []
+        for n, (_, _, a3) in enumerate(valid):
+            gt_cm = a3.T / 10.0                       # [15, 3], test order
+            uv = (MUPOTS_K @ (gt_cm.T / gt_cm.T[2])).T
+            gt3.append(np.concatenate(
+                [gt_cm, np.tile(intrinsics, (15, 1))], -1)[inv])
+            gt2.append(np.concatenate(
+                [uv[:, :2], gt_cm[:, 2:], np.full((15, 1), 2.0)], -1)[inv])
+            if perturb and i == 1 and n == len(valid) - 1:
+                continue                              # undetected
+            p_cm = gt_cm + (rng.randn(15, 3) * MUPOTS_NOISE_CM if perturb
+                            else 0.0)
+            uv = (MUPOTS_K @ (p_cm.T / p_cm.T[2])).T
+            body2 = np.zeros((15, 4))
+            body2[:, 0] = uv[:, 0] * scale
+            body2[:, 1] = uv[:, 1] * scale + pad_y
+            body2[:, 3] = 1
+            body3 = np.concatenate([p_cm, np.ones((15, 1))], -1)
+            pred2.append(body2[inv])
+            pred3.append(body3[inv])
+        pairs.append({"pred_2d": np.asarray(pred2).tolist(),
+                      "pred_3d": np.asarray(pred3).tolist(),
+                      "root_d": [float(p[2, 2]) for p in pred3],
+                      "image_path": f"TS{MUPOTS_TS}/img_{i:06d}.jpg",
+                      "gt_3d": np.asarray(gt3).tolist(),
+                      "gt_2d": np.asarray(gt2).tolist()})
+    return {"model_pattern": "MIX", "3d_pairs": pairs}
+
+
+def param_digest(model) -> str:
+    """sha256 of a model's parameters' bytes, in order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in model.parameters():
+        h.update(p.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def small_dp_step(cfg, world: int, rank: int, dev):
+    """One float64 step of the small config on this rank's share of a
+    seeded global batch of 4 (all of it in one process): (losses, the
+    gradient vector on the host)."""
+    from smap_tpu_torch.models.smap import init_smap
+    from smap_tpu_torch.train.step import (TrainBatch, create_train_state,
+                                           train_step, training_model)
+
+    batch = train_batch(np.random.RandomState(1),
+                        torch.Generator().manual_seed(1), cfg, 4, "cpu")
+    per = 4 // world
+    local = TrainBatch(*(x[rank * per:(rank + 1) * per].to(dev)
+                         for x in batch))
+    model = training_model(init_smap(cfg.model, seed=2), dev)
+    model.double().compute_dtype = torch.float64
+    state, losses = train_step(create_train_state(model, cfg, world), local,
+                               cfg=cfg)
+    return ({k: float(v) for k, v in losses.items()},
+            grad_vector(state.model).cpu())
+
+
+def dp_train_rank(rank: int, world: int, coordinator: str, backend: str,
+                  device: str, small: bool) -> dict:
+    """One rank of phase 10 (a), in its own process: ``Config()`` at full
+    width, each rank from its own seed until create_train_state copies
+    rank 0's weights, DP_TRAIN_STEPS steps on this rank's share of seeded
+    global batches of TRAIN_BATCH (for a group of one, rank 0's share)
+    under deterministic algorithms; after every step the ranks' losses and
+    parameters must be equal. Then the gradient bucket's all-reduce
+    alone and ``average_gradients`` (flatten, all-reduce, write back),
+    timed, and (``small``) the small float64 step. A group of one joins NCCL
+    directly (initialize_distributed makes no group for one process)."""
+    import torch.distributed as tdist
+
+    from smap_tpu_torch.config import Config
+    from smap_tpu_torch.models.smap import init_smap
+    from smap_tpu_torch.parallel import distributed
+    from smap_tpu_torch.runtime import (deterministic_algorithms, get_device,
+                                        set_tf32)
+    from smap_tpu_torch.train.step import (TrainBatch, create_train_state,
+                                           train_step, training_model)
+
+    if world == 1:
+        torch.cuda.set_device(0)
+        tdist.init_process_group(backend, init_method=f"tcp://{coordinator}",
+                                 world_size=1, rank=0)
+    else:
+        distributed.initialize_distributed(coordinator, world, rank,
+                                           backend=backend,
+                                           timeout_s=DP_TIMEOUT)
+    try:
+        set_tf32(False)
+        dev = get_device(device)
+        cfg = Config()
+        per = TRAIN_BATCH // DP_RANKS
+        out = {"device": str(dev), "backend": tdist.get_backend(),
+               "world": tdist.get_world_size(), "steps": []}
+        with deterministic_algorithms():
+            model = training_model(init_smap(cfg.model, seed=rank), dev)
+            state = create_train_state(model, cfg, world)
+            rng, gen = np.random.RandomState(0), torch.Generator(dev)
+            gen.manual_seed(0)
+            torch.cuda.reset_peak_memory_stats(dev)
+            for _ in range(DP_TRAIN_STEPS):
+                batch = train_batch(rng, gen, cfg, TRAIN_BATCH, dev)
+                local = TrainBatch(*(x[rank * per:(rank + 1) * per]
+                                     for x in batch))
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                state, losses = train_step(state, local, cfg=cfg)
+                values = {k: float(v) for k, v in losses.items()}
+                ms = (time.perf_counter() - t0) * 1e3
+                mine = (values, param_digest(state.model))
+                ranks = distributed.all_gather_objects(mine)
+                if any(g != mine for g in ranks):
+                    raise AssertionError(f"rank {rank}: the ranks' losses or "
+                                         f"parameters differ after step "
+                                         f"{state.step}")
+                out["steps"].append({"ms": ms, "losses": values})
+            out["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+            grads = [p for p in state.model.parameters()
+                     if p.grad is not None]
+            out["grad_mb"] = sum(p.grad.numel() * p.grad.element_size()
+                                 for p in grads) / 1e6
+            flat = torch.cat([p.grad.reshape(-1) for p in grads])
+            for key, fn in (("allreduce_ms", lambda: tdist.all_reduce(flat)),
+                            ("average_ms", lambda: distributed
+                             .average_gradients(grads))):
+                times = []
+                for _ in range(3):
+                    torch.cuda.synchronize(dev)
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize(dev)
+                    times.append((time.perf_counter() - t0) * 1e3)
+                out[key] = float(np.median(times))
+        del state, model
+        if small:
+            out["small"] = small_dp_step(small_train_cfg(), world, rank, dev)
+        return out
+    finally:
+        distributed.finalize_distributed()
+
+
+def dp_training(dev, card: str, backend: str, device: str) -> None:
+    """Phase 10 (a): DP_RANKS ranks with ``backend`` on ``device``, and on
+    a host with fewer cards than ranks a one-rank NCCL group too; the
+    small float64 step of the ranks against this process's."""
+    from smap_tpu_torch.parallel.distributed import spawn_ranks
+
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(dp_train_rank, DP_RANKS, backend, device, True,
+                        timeout_s=DP_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    r0 = ranks[0]
+    for i, step in enumerate(r0["steps"]):
+        losses_ok(step["losses"], f"data parallel step {i + 1}")
+        log(f"data parallel: step {i + 1}: {fmt(step['losses'])}; ranks "
+            f"equal in losses and parameters")
+    ms = float(np.mean([s["ms"] for s in r0["steps"][1:]]))
+    peaks = ", ".join(f"{r['peak_gb']:.2f}" for r in ranks)
+    log(f"data parallel: {DP_RANKS} {r0['backend']} ranks on "
+        f"{[r['device'] for r in ranks]}, Config() 512x832 bf16, global "
+        f"batch {TRAIN_BATCH} ({TRAIN_BATCH // DP_RANKS} a rank), "
+        f"deterministic algorithms: {ms:.1f} ms a step (rank 0, steps 2-"
+        f"{DP_TRAIN_STEPS}, host clock, synchronized), "
+        f"{TRAIN_BATCH * 1e3 / ms:.1f} img/s; peak memory a rank "
+        f"{peaks} GB; "
+        f"gradient all-reduce {r0['allreduce_ms']:.1f} ms "
+        f"({r0['grad_mb']:.1f} MB of float32 gradients in one bucket; "
+        f"average_gradients, with its flatten and write-back, "
+        f"{r0['average_ms']:.1f} ms); "
+        f"{seconds:.1f} s of processes [{card}]")
+    ((l2, g2), (l2b, g2b)) = ranks[0]["small"], ranks[1]["small"]
+    if l2 != l2b or not torch.equal(g2, g2b):
+        raise AssertionError("data parallel: the ranks' small steps differ")
+    l1, g1 = small_dp_step(small_train_cfg(), 1, 0, dev)
+    loss_d = max(abs(l2[k] - l1[k]) / abs(l1[k]) for k in l1)
+    grad_d = dist(g2, g1)
+    log(f"data parallel: small config (1 stage, 64x96, float64), "
+        f"{DP_RANKS} ranks against 1 process on the same global batch of "
+        f"4: losses rel {loss_d:.2e} (tolerance {DP_SMALL_LOSS_RTOL}), "
+        f"gradient vector {grad_d:.2e} (tolerance {DP_SMALL_GRAD_TOL})")
+    if not (loss_d <= DP_SMALL_LOSS_RTOL and grad_d <= DP_SMALL_GRAD_TOL):
+        raise AssertionError("data parallel: 2 ranks are not 1 process")
+    if torch.cuda.device_count() < DP_RANKS:
+        t0 = time.perf_counter()
+        one = spawn_ranks(dp_train_rank, 1, "nccl", "cuda", False,
+                          timeout_s=DP_TIMEOUT)[0]
+        for step in one["steps"]:
+            losses_ok(step["losses"], "one-rank NCCL step")
+        one_ms = float(np.mean([s["ms"] for s in one["steps"][1:]]))
+        log(f"data parallel: a one-rank {one['backend']} group on "
+            f"{one['device']}, the same steps on one rank's share (batch "
+            f"{TRAIN_BATCH // DP_RANKS}): {one_ms:.1f} ms a step (steps 2-"
+            f"{DP_TRAIN_STEPS}), its gradient bucket all-reduced in "
+            f"{one['allreduce_ms']:.2f} ms (average_gradients "
+            f"{one['average_ms']:.2f} ms); peak {one['peak_gb']:.2f} GB; "
+            f"{time.perf_counter() - t0:.1f} s of process [{card}]")
+
+
+def dp_labeled(dev, card: str, backend: str, sd_path: str, sd,
+               frame_dir: str) -> dict:
+    """Phase 10 (b): ``test_smap -t generate_result --distributed`` in
+    DP_RANKS processes on phase 9's labeled frames (``annot.json``), each
+    rank on its contiguous shard: A and B launched in every rank, and the
+    JSON rank 0 writes equal to ``run_labeled_inference`` over the whole
+    set in this process. Returns the ranks' launches, summed."""
+    from smap_tpu_torch.config import Config
+    from smap_tpu_torch.data.datasets import JointDataset, load_annotations
+    from smap_tpu_torch.inference import SMAPInference, run_labeled_inference
+    from smap_tpu_torch.parallel.distributed import free_port
+
+    annot = os.path.join(frame_dir, "annot.json")
+    out_dir = os.path.join(frame_dir, "dp_result")
+    flags = ["-m", "smap_tpu_torch.test_smap", "-t", "generate_result",
+             "-p", sd_path, "--test-json", annot, "--test-root", frame_dir,
+             "--batch_size", str(DP_BATCH), "--output-dir", out_dir,
+             "--distributed", "--coordinator", f"localhost:{free_port()}",
+             "--num-processes", str(DP_RANKS), "--backend", backend]
+    if backend == "gloo":
+        flags += ["--device", "cuda:0"]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, *flags, "--process-id",
+                               str(r)], cwd=ROOT, env=env, text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+             for r in range(DP_RANKS)]
+    try:
+        outs = [p.communicate(timeout=DP_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    seconds = time.perf_counter() - t0
+    for r, (p, (stdout, stderr)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"test_smap rank {r} exited {p.returncode}:"
+                                 f"\n{stdout[-3000:]}\n{stderr[-3000:]}")
+    summaries = [json.loads(err.strip().splitlines()[-1]) for _, err in outs]
+    total = {}
+    for r, summary in enumerate(summaries):
+        launches = summary["kernel_launches"]
+        if summary["rank"] != r or not (launches["paf_score"] >= 1
+                                         and launches["associate"] >= 1):
+            raise AssertionError(f"test_smap rank {r}: {summary}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    with open(os.path.join(out_dir, "stage3_root2_generate_result_test"
+                                    ".json")) as f:
+        got = json.load(f)["3d_pairs"]
+    cfg = Config()
+    dataset = JointDataset(load_annotations(annot), {"MUPOTS": frame_dir},
+                           cfg, "test")
+    want = run_labeled_inference(dataset, SMAPInference(sd, cfg, device=dev),
+                                 batch_size=DP_BATCH)["3d_pairs"]
+    err = same_pairs(got, json.loads(json.dumps(want)),
+                     "test_smap --distributed")
+    log(f"data parallel: test_smap -t generate_result in {DP_RANKS} "
+        f"{backend} processes: {len(got)} items, "
+        f"{sum(len(p['pred_3d']) for p in got)} people, equal to one "
+        f"process's run_labeled_inference (max abs err {err:.3g}, the "
+        f"same order); launches a rank "
+        f"{[s['kernel_launches'] for s in summaries]}; {seconds:.1f} s of "
+        f"processes [{card}]")
+    return total
+
+
+def dp_serving(dev, card: str, sd, batches) -> dict:
+    """Phase 10 (c): ``SMAPInference(devices=...)`` over every card, or
+    two replicas on one card, on SHARD_BATCHES batches of BATCH, unfolded,
+    folded-fused and int8-static, against one device's ``run_batch`` on
+    the same shards, concatenated: equal counts and bodies within
+    DECODE_ATOL, each mode's kernels launched by every replica, img/s of
+    both engines at BATCH in turns. (One device's forward of the whole
+    batch is no reference for the bits: cuDNN takes other algorithms for
+    a batch of 16 than for 8, and at random weights the bf16 maps move by
+    ~2% of their range, which decodes another crowd; the log gives that
+    distance.) Returns the sharded engines' launches, summed."""
+    from smap_tpu_torch.config import Config
+    from smap_tpu_torch.inference import SMAPInference
+    from smap_tpu_torch.ops import kernels
+    from smap_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = Config()
+    cards = torch.cuda.device_count()
+    mesh = make_mesh() if cards > 1 else make_mesh([dev, dev])
+    n = len(mesh)
+    runs = SHARD_BATCHES
+    modes = {
+        "unfolded": (dict(), {}),
+        "folded-fused": (dict(quantized="folded", fuse_stem=True,
+                              fuse_bottleneck=True),
+                         {"fused_stem": n * runs,
+                          "fused_bottleneck": 9 * n * runs}),
+        "int8-static": (dict(quantized="static",
+                             calibration_batches=[batches[0][0]]),
+                        {"int8_conv": 206 * n * runs}),
+    }
+    per = BATCH // n
+    total = {}
+    for name, (kw, want_launches) in modes.items():
+        one = SMAPInference(sd, cfg, device=dev, **kw)
+        sharded = SMAPInference(sd, cfg, devices=mesh, **kw)
+        for engine in (one, sharded):                         # warm-up
+            engine.run_batch(*batches[0]).count.cpu()
+        want = [one._merge([one.run_batch(images[i * per:(i + 1) * per],
+                                          scales[i * per:(i + 1) * per])
+                            for i in range(n)])
+                for images, scales in batches[:runs]]
+        whole = one.forward(one.to_device(batches[0][0]))[0]
+        split = torch.cat([one.forward(one.to_device(
+            batches[0][0][i * per:(i + 1) * per]))[0] for i in range(n)])
+        kernels.reset_launch_counts()
+        got = [sharded.run_batch(*b) for b in batches[:runs]]
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        want_launches = {"paf_score": n * runs, "associate": n * runs,
+                         **want_launches}
+        if any(launches[k] != v for k, v in want_launches.items()):
+            raise AssertionError(f"sharded {name}: launches {launches}, "
+                                 f"want {want_launches}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        err = 0.0
+        for g, w in zip(got, want):
+            if not torch.equal(g.count, w.count):
+                raise AssertionError(f"sharded {name}: counts "
+                                     f"{g.count.tolist()} vs "
+                                     f"{w.count.tolist()}")
+            for i, k in enumerate(w.count.tolist()):
+                for a, b in zip(g[:3], w[:3]):
+                    if k:
+                        err = max(err, float((a[i, :k] - b[i, :k]).abs()
+                                             .max()))
+        if not err <= DECODE_ATOL:
+            raise AssertionError(f"sharded {name}: max abs err {err}")
+
+        def serve(engine):
+            return lambda: [engine.run_batch(*b).count.cpu()
+                            for b in batches[:runs]]
+
+        rates = {}
+        for label, engine in (("one", one), ("sharded", sharded),
+                              ("sharded", sharded), ("one", one)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            serve(engine)()
+            rates.setdefault(label, []).append(
+                runs * BATCH / (time.perf_counter() - t0))
+        log(f"data parallel: SMAPInference(devices={[str(d) for d in mesh]})"
+            f" {name}, batch {BATCH}: counts equal to one device's run_batch "
+            f"on the shards ({[int(c) for c in got[0].count[:4]]}...), max "
+            f"abs err {err:.3g} (one device's 2D maps of the batch of "
+            f"{BATCH} against those of its {n} shards: rms rel "
+            f"{rel_err(split, whole):.2e}); launches {launches}; "
+            f"{np.mean(rates['sharded']):.1f} img/s against one device's "
+            f"{np.mean(rates['one']):.1f} (run_batch, results to the host, "
+            f"in turns) [{card}]")
+        del one, sharded
+    return total
+
+
+def dp_evaluation(tmp: str) -> None:
+    """Phase 10 (d): the eval CLIs as processes on a MuPoTS-shaped
+    sequence: the exact predictions score PCK 100, MPJPE 0 and ordinal 1;
+    the perturbed ones print MUPOTS_PINNED."""
+    root = os.path.join(tmp, "mupots")
+    poses = mupots_sequence(os.path.join(root, f"TS{MUPOTS_TS}"))
+    for label, perturb, pinned in (("exact", False, MUPOTS_PERFECT),
+                                   ("perturbed", True, MUPOTS_PINNED)):
+        path = os.path.join(tmp, f"mupots_{label}.json")
+        with open(path, "w") as f:
+            json.dump(mupots_result(poses, perturb), f)
+        runs = {
+            "relative": run_cli("eval_mupots", "--result-json", path,
+                                "--mupots-dir", root),
+            "absolute": run_cli("eval_mupots", "--result-json", path,
+                                "--mupots-dir", root, "--absolute"),
+            "panoptic": run_cli("eval_panoptic", "--result-json", path),
+        }
+        for mode, out in runs.items():
+            lines = out.stdout.splitlines()
+            missing = [line for line in pinned[mode] if line not in lines]
+            if missing:
+                raise AssertionError(f"eval {mode} on the {label} "
+                                     f"predictions: {missing} not in\n"
+                                     f"{out.stdout}")
+        log(f"evaluation: eval_mupots (relative, --absolute) and "
+            f"eval_panoptic on the {label} predictions: "
+            + "; ".join(" / ".join(line.strip() for line in pinned[m])
+                        for m in runs))
+
+
+def phase_data_parallel(dev, card: str, tmp: str, sd_path: str, sd,
+                        frame_dir: str, batches) -> dict:
+    """Phase 10: data-parallel training, labeled inference across
+    processes, sharded serving and the evaluation CLIs. Returns the kernel
+    launches of (b) and (c), summed."""
+    cards = torch.cuda.device_count()
+    if cards >= DP_RANKS:
+        backend, device = "nccl", "cuda"
+    else:
+        backend, device = "gloo", "cuda:0"
+    log(f"data parallel: {cards} card(s): {DP_RANKS} {backend} ranks on "
+        f"{device}" + (" (each its own card)" if backend == "nccl" else
+                       " (sharing it), and a one-rank NCCL group"))
+    t0 = time.perf_counter()
+    dp_training(dev, card, backend, device)
+    launches = dp_labeled(dev, card, backend, sd_path, sd, frame_dir)
+    for k, v in dp_serving(dev, card, sd, batches).items():
+        launches[k] = launches.get(k, 0) + v
+    dp_evaluation(tmp)
+    log(f"data parallel: phase 10 took {time.perf_counter() - t0:.1f} s")
     return launches
 
 
-def main() -> int:
+def data_parallel_inputs(tmp: str):
+    """What phase 9 leaves for phase 10, made alone: the first
+    LABELED_FRAMES frames as PNG with their ``annot.json``, and the
+    perturbed weights as a ``.pth``. Returns (the weights' path, the
+    weights, the frames' directory)."""
+    from smap_tpu_torch.config import Config
+
+    frame_dir = os.path.join(tmp, "frames")
+    os.makedirs(frame_dir)
+    for i, img in enumerate(cli_frames(LABELED_FRAMES)):
+        with open(os.path.join(frame_dir, f"frame{i:03d}.png"), "wb") as f:
+            f.write(png_bytes(img))
+    labeled_annotations(np.random.RandomState(7), frame_dir)
+    sd = perturbed_state_dict(Config().model, seed=0)
+    sd_path = os.path.join(tmp, "smap.pth")
+    torch.save({"model": sd}, sd_path)
+    return sd_path, sd, frame_dir
+
+
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else list(argv)
+    if args not in ([], ["--data-parallel-only"]):
+        print("usage: python3 chip_smoke.py [--data-parallel-only]",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda is not available; this script needs "
               "a CUDA card", file=sys.stderr)
@@ -2186,6 +2760,11 @@ def main() -> int:
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"build: {line.strip()}")
 
+    if args:     # phase 10 alone, e.g. on a host with several cards
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_dp_") as tmp:
+            phase_data_parallel(dev, card, tmp, *data_parallel_inputs(tmp),
+                                serving_batches(Config()))
+        return finish(card)
     rows = phase_kernels(dev, card)
     phase_golden(dev)
     batches = serving_batches(Config())
@@ -2205,9 +2784,13 @@ def main() -> int:
     int8_row["launches_per_forward"] = launches["int8_conv"] / len(batches)
     rows["int8_conv"] = int8_row
     phase_training(dev, card)
-    cli_launches = phase_entry_points(dev, card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
+        cli_launches, cli_state = phase_entry_points(dev, card, tmp)
+        dp_launches = phase_data_parallel(dev, card, tmp, *cli_state,
+                                          batches)
     for key, row in rows.items():
         row["cli_launches"] = cli_launches[key]
+        row["dp_launches"] = dp_launches.get(key, 0)
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_per_forward", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "bound_kind", "share", "library_ms")
@@ -2215,6 +2798,11 @@ def main() -> int:
                 **{k: v for k, v in row.items() if k not in keys}}
                for row in rows.values()]
     log(json.dumps({"kernels": summary}))
+    return finish(card)
+
+
+def finish(card: str) -> int:
+    """The last two lines: the card, then the result."""
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

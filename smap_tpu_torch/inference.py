@@ -3,7 +3,8 @@
 
 ``SMAPInference`` runs the SMAP forward (optionally with flip test-time
 augmentation), the batched post-processing and the optional RefineNet lift
-on one device; the host only moves frames in and results out.
+on one device, or with ``devices=`` on several: one replica a device, each
+batch split between them; the host only moves frames in and results out.
 """
 
 from __future__ import annotations
@@ -36,6 +37,8 @@ from smap_tpu_torch.ops.nms import _local_max_mask
 from smap_tpu_torch.ops.postprocess import (PoseResults, ScaleInfo,
                                             flip_tta_merge, postprocess_batch)
 from smap_tpu_torch.ops.refine import apply_refinement, build_refine_input
+from smap_tpu_torch.parallel import mesh
+from smap_tpu_torch.parallel.distributed import all_gather_objects
 from smap_tpu_torch.runtime import compute_dtype, get_device
 
 Maps = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -50,7 +53,8 @@ def _batch_list(batches) -> list:
 
 
 class SMAPInference:
-    """Batched inference pipeline on one device.
+    """Batched inference pipeline on one device, or data parallel over
+    several.
 
     Args:
       state_dict: SMAP weights in the reference layout (the port's
@@ -94,6 +98,15 @@ class SMAPInference:
         at the rung that fits (``max_peaks`` above the top rung). The
         results equal those of the full-capacity decode at every rung.
         Not with ``overflow_fallback``, which the ladder already covers.
+      devices: several devices (``parallel.mesh.make_mesh``; in place of
+        ``device``): one replica on each, with its own weights (transformed
+        and calibrated once, on the first), packs and kernel caches. Each
+        batch is split into equal contiguous shards
+        (``parallel.mesh.shard_batch``: the batch must divide by the device
+        count), each run through the forward and decode on its device, and
+        the results are concatenated in batch order on the first device.
+        The ladder's rung and the overflow fallback's re-decode are decided
+        for the whole batch, as on one device. A device may appear twice.
     """
 
     def __init__(self, state_dict: Mapping[str, torch.Tensor],
@@ -102,11 +115,14 @@ class SMAPInference:
                  do_flip: bool = False, device="cuda", quantized=False,
                  fuse_stem: bool = False, fuse_bottleneck: bool = False,
                  calibration_batches=None, overflow_fallback: bool = False,
-                 adaptive_capacities: Optional[Sequence[int]] = None):
+                 adaptive_capacities: Optional[Sequence[int]] = None,
+                 devices: Optional[Sequence[Any]] = None):
         if overflow_fallback and adaptive_capacities:
             raise ValueError("adaptive_capacities already escalates; don't "
                              "combine it with overflow_fallback")
-        self.device = get_device(device)
+        self.mesh = mesh.make_mesh(devices) if devices is not None else (
+            get_device(device),)
+        self.device = self.mesh[0]
         if quantized and not cfg.model.quantized:
             if quantized == "static" and calibration_batches is None:
                 raise ValueError(
@@ -149,6 +165,14 @@ class SMAPInference:
         # engine never decodes twice.
         self._spec_cap = (self.adaptive_capacities[-1]
                           if self.adaptive_capacities else None)
+        # The replicas that serve the shards of a batch: this engine on the
+        # first device, then one engine (with the weights transformed
+        # here) on each further device.
+        self.replicas = [self] + [
+            SMAPInference(state_dict, cfg, refine_state_dict, do_flip,
+                          device=d, fuse_stem=fuse_stem,
+                          fuse_bottleneck=fuse_bottleneck)
+            for d in self.mesh[1:]]
 
     # -- stages -------------------------------------------------------------
 
@@ -240,34 +264,90 @@ class SMAPInference:
         return next((c for c in self.adaptive_capacities if c >= n),
                     self.cfg.post.max_peaks)
 
-    def _ladder_dispatch(self, maps: Maps, info: ScaleInfo):
-        """Queue the peak count's copy to the host and the decode at the
-        speculated rung, without waiting for the device. Returns what
-        :meth:`_ladder_resolve` takes."""
-        count = self.peak_count(maps[0])
-        if self.device.type == "cuda":
-            host = torch.empty((), dtype=count.dtype, pin_memory=True)
-            host.copy_(count, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
-        else:
-            host, ready = count, None
-        cap = self._spec_cap
-        return maps, info, self.postprocess(maps, info, capacity=cap), \
-            host, ready, cap
+    def _count_to_host(self, out2d: torch.Tensor):
+        """Queue :meth:`peak_count`'s copy to the host without waiting:
+        (the host tensor, the event that says it arrived, or None)."""
+        count = self.peak_count(out2d)
+        if self.device.type != "cuda":
+            return count, None
+        host = torch.empty((), dtype=count.dtype, pin_memory=True)
+        host.copy_(count, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        return host, ready
 
-    def _ladder_resolve(self, maps: Maps, info: ScaleInfo,
-                        results: PoseResults, host: torch.Tensor, ready,
-                        cap: int) -> PoseResults:
-        """Wait for the batch's peak count only, decode again if the rung
-        was too small, and speculate the next batch's rung from it."""
-        if ready is not None:
-            ready.synchronize()
-        n = int(host)
-        self._spec_cap = self._rung_for(n)
-        if n > cap:
-            results = self.postprocess(maps, info, capacity=self._spec_cap)
-        return results
+    # -- data parallelism ---------------------------------------------------
+
+    def _shards(self, images, scales) -> List[Tuple[Any, Scales]]:
+        """``(images, scales)`` of each replica: the whole batch for one,
+        else its contiguous shard on its device."""
+        if len(self.replicas) == 1:
+            return [(images, scales)]
+        return list(zip(mesh.shard_batch(images, self.mesh),
+                        mesh.shard_batch(scales, self.mesh)))
+
+    def _merge(self, results: List[PoseResults]) -> PoseResults:
+        """The replicas' results in batch order, on the first device."""
+        if len(results) == 1:
+            return results[0]
+        return PoseResults(*(torch.cat([r[f].to(self.device)
+                                        for r in results])
+                             for f in range(len(PoseResults._fields))))
+
+    def _sync(self) -> None:
+        for d in set(self.mesh):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    # -- dispatch and resolve -----------------------------------------------
+
+    def _dispatch(self, images, scales):
+        """Queue a batch: every replica's forward on its shard, then its
+        decode (at the ladder's speculated rung), with no wait for the
+        devices. Returns what :meth:`_resolve` takes."""
+        placed = [r.place(*shard) for r, shard
+                  in zip(self.replicas, self._shards(images, scales))]
+        maps = [r.forward(x) for r, (x, _) in zip(self.replicas, placed)]
+        return self._decode_dispatch(maps, [info for _, info in placed])
+
+    def _decode_dispatch(self, maps: List[Maps], infos: List[ScaleInfo]):
+        """Queue each replica's decode of its maps (and, with the ladder,
+        its peak count's copy to the host)."""
+        cap = self._spec_cap
+        items = []
+        for r, m, info in zip(self.replicas, maps, infos):
+            count = (r._count_to_host(m[0]) if self.adaptive_capacities
+                     else None)
+            items.append((m, info, r.postprocess(m, info, capacity=cap),
+                          count))
+        return items, cap
+
+    def _resolve(self, pending) -> PoseResults:
+        """Wait for what a dispatched batch's decode depends on: with the
+        ladder, the peak counts only (decode again at the rung that fits
+        the batch's most peaks if the speculated one was too small, and
+        speculate the next batch's rung from it); with the overflow
+        fallback, the overflow flags (decode again at ``max_peaks`` if an
+        image overflowed). Returns the batch's results."""
+        items, cap = pending
+        results = [res for _, _, res, _ in items]
+        again = None
+        if self.adaptive_capacities:
+            n = 0
+            for _, _, _, (host, ready) in items:
+                if ready is not None:
+                    ready.synchronize()
+                n = max(n, int(host))
+            self._spec_cap = self._rung_for(n)
+            if n > cap:
+                again = self._spec_cap
+        elif self.overflow_fallback and any(bool(r.overflow.any())
+                                            for r in results):
+            again = self.cfg.post.max_peaks
+        if again is not None:
+            results = [r.postprocess(m, info, capacity=again) for r, (
+                m, info, _, _) in zip(self.replicas, items)]
+        return self._merge(results)
 
     # -- entry points -------------------------------------------------------
 
@@ -280,19 +360,11 @@ class SMAPInference:
           scales: per-image scale dicts, or a ScaleInfo on the device.
 
         Returns:
-          PoseResults on the device. Without the ladder or the overflow
-          fallback the call does not wait for the device; with them it
-          waits for the batch's peak count or overflow flag.
+          PoseResults on the (first) device. Without the ladder or the
+          overflow fallback the call does not wait for the device; with
+          them it waits for the batch's peak count or overflow flag.
         """
-        images, info = self.place(images, scales)
-        maps = self.forward(images)
-        if self.adaptive_capacities:
-            return self._ladder_resolve(*self._ladder_dispatch(maps, info))
-        results = self.postprocess(maps, info)
-        if self.overflow_fallback and bool(results.overflow.any()):
-            results = self.postprocess(maps, info,
-                                       capacity=self.cfg.post.max_peaks)
-        return results
+        return self._resolve(self._dispatch(images, scales))
 
     def run_stream(self, batches: Iterable[Optional[Tuple[Any, Scales]]]
                    ) -> Iterator[PoseResults]:
@@ -300,56 +372,45 @@ class SMAPInference:
         PoseResults per batch, in order, with one batch in flight: batch
         ``i`` is yielded only after batch ``i + 1`` has been queued, so the
         host's copy and launches of the next batch overlap the device's
-        work on this one (with the ladder, batch ``i``'s peak count is read
-        only then). A ``None`` item is a flush: the batch in flight is
-        yielded at once."""
+        work on this one (the ladder's peak count and the overflow flags
+        of batch ``i`` are read only then). A ``None`` item is a flush: the
+        batch in flight is yielded at once."""
         pending = None
-
-        def resolve(item):
-            return (self._ladder_resolve(*item) if self.adaptive_capacities
-                    else item)
-
         for entry in batches:
             if entry is None:
                 if pending is not None:
-                    yield resolve(pending)
+                    yield self._resolve(pending)
                     pending = None
                 continue
-            if self.adaptive_capacities:
-                images, info = self.place(*entry)
-                item = self._ladder_dispatch(self.forward(images), info)
-            else:
-                item = self.run_batch(*entry)
+            item = self._dispatch(*entry)
             if pending is not None:
-                yield resolve(pending)
+                yield self._resolve(pending)
             pending = item
         if pending is not None:
-            yield resolve(pending)
+            yield self._resolve(pending)
 
     def run_batch_timed(self, images, scales: Scales
                         ) -> Tuple[PoseResults, Dict[str, float]]:
         """``run_batch`` (without the ladder's or the fallback's second
-        decode) with the wall time of each stage, each ended by a device
-        synchronization: ``transfer_ms`` (frames and metadata to the
-        device), ``model_ms`` (the forward), ``postproc_ms`` (the
-        decode)."""
-        def sync():
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-
+        decode) with the wall time of each stage, each ended by a
+        synchronization of every device: ``transfer_ms`` (frames and
+        metadata to the devices), ``model_ms`` (the forward), ``postproc_ms``
+        (the decode)."""
         t0 = time.perf_counter()
-        x, info = self.place(images, scales)
-        sync()
+        placed = [r.place(*shard) for r, shard
+                  in zip(self.replicas, self._shards(images, scales))]
+        self._sync()
         t1 = time.perf_counter()
-        maps = self.forward(x)
-        sync()
+        maps = [r.forward(x) for r, (x, _) in zip(self.replicas, placed)]
+        self._sync()
         t2 = time.perf_counter()
-        results = self.postprocess(maps, info)
-        sync()
+        results = [r.postprocess(m, info) for r, m, (_, info)
+                   in zip(self.replicas, maps, placed)]
+        self._sync()
         t3 = time.perf_counter()
-        return results, {"transfer_ms": (t1 - t0) * 1e3,
-                         "model_ms": (t2 - t1) * 1e3,
-                         "postproc_ms": (t3 - t2) * 1e3}
+        return self._merge(results), {"transfer_ms": (t1 - t0) * 1e3,
+                                      "model_ms": (t2 - t1) * 1e3,
+                                      "postproc_ms": (t3 - t2) * 1e3}
 
     @staticmethod
     def results_to_pairs(results: PoseResults, img_paths: Sequence[str],
@@ -410,17 +471,12 @@ def run_labeled_inference(dataset, engine: SMAPInference,
     (``evaluation.register.register_pred``) before they are written.
     ``generate_train`` keeps one pair per registered person with a root.
     ``shard`` / ``num_shards`` take a contiguous slice of the dataset.
-    ``gather=True`` merges the shards of all processes: a no-op in one
-    process; with several (``torch.distributed``) it raises, since the
-    port's cross-process gather is not written yet.
+    ``gather=True`` merges the shards of all the processes of the group
+    (``parallel.distributed.all_gather_objects``), in rank order, so that
+    every rank returns the whole set; a no-op in one process.
     """
     if mode not in ("generate_result", "generate_train"):
         raise ValueError(f"mode {mode!r}")
-    if (gather and torch.distributed.is_available()
-            and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError("gather=True across processes is not "
-                                  "ported yet")
     result: Dict[str, Any] = {"model_pattern": "MIX", "3d_pairs": []}
     n = len(dataset)
     per = -(-n // num_shards)
@@ -486,6 +542,9 @@ def run_labeled_inference(dataset, engine: SMAPInference,
                     "root_d": newd.tolist(), "image_path": samples[j][2],
                     "gt_3d": gt[:, :, 4:].tolist(),
                     "gt_2d": gt[:, :, :4].tolist()})
+    if gather:
+        shards = all_gather_objects(result["3d_pairs"])
+        result["3d_pairs"] = [p for s in shards for p in s]
     return result
 
 
@@ -496,21 +555,30 @@ def run_inference(image_dir: str, state_dict: Mapping[str, torch.Tensor],
                   output_json: Optional[str] = None, device="cuda",
                   quantized=False, fuse_stem: bool = False,
                   fuse_bottleneck: bool = False, calibration_batches=None,
-                  adaptive_capacities: Optional[Sequence[int]] = None
-                  ) -> Dict[str, Any]:
+                  adaptive_capacities: Optional[Sequence[int]] = None,
+                  data_parallel: bool = False) -> Dict[str, Any]:
     """Inference over a directory of images (jpg / png / jpeg, recursive;
     ``data.image.imread``: PNG needs no OpenCV): letterbox on the host,
     run the pipeline, return (and optionally write) the reference's result
     JSON. ``quantized``, ``calibration_batches``, ``fuse_stem``,
     ``fuse_bottleneck`` and ``adaptive_capacities`` go to
-    ``SMAPInference``."""
+    ``SMAPInference``; ``data_parallel`` shards each batch over every card
+    of this host (``parallel.mesh.local_mesh``; ``batch_size`` must divide
+    by their count)."""
     paths = image_paths(image_dir)
+    devices = None
+    if data_parallel:
+        devices = mesh.local_mesh(device)
+        if batch_size % len(devices):
+            raise ValueError(f"batch_size {batch_size} must be divisible by "
+                             f"the {len(devices)} local devices")
     engine = SMAPInference(state_dict, cfg, refine_state_dict, do_flip,
                            device=device, quantized=quantized,
                            fuse_stem=fuse_stem,
                            fuse_bottleneck=fuse_bottleneck,
                            calibration_batches=calibration_batches,
-                           adaptive_capacities=adaptive_capacities)
+                           adaptive_capacities=adaptive_capacities,
+                           devices=devices)
     result: Dict[str, Any] = {"model_pattern": "MIX", "3d_pairs": []}
     chunks = collections.deque()
 

@@ -8,11 +8,12 @@ labels are ``[B, 5, H, W, 57]``.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 
 from smap_tpu_torch.config import NUM_JOINTS, NUM_LIMBS, TrainConfig
+from smap_tpu_torch.parallel.distributed import all_reduce_mean, process_count
 
 
 def joints_l2_loss(output: torch.Tensor, valid: torch.Tensor,
@@ -39,16 +40,21 @@ def joints_l2_loss(output: torch.Tensor, valid: torch.Tensor,
     return kpt_top.mean() + paf_top.mean()
 
 
-def depth_loss(output: torch.Tensor, rdepth: torch.Tensor) -> torch.Tensor:
-    """Sparse L1 root-depth loss.
+def depth_loss(output: torch.Tensor, rdepth: torch.Tensor,
+               count: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sparse L1 root-depth loss: the summed error over the valid roots
+    divided by ``count``, by default their number in this batch.
 
     Args:
       output: ``[B, H, W, 1]`` root-depth map.
       rdepth: ``[B, P, 3]`` rows of (y / stride, x / stride, normalized Z);
         Z <= 0 marks padding. Coordinates are truncated and clipped to the
         map.
+      count: the divisor (no gradient flows through it); under data
+        parallelism the ranks' mean count (:func:`root_count`).
 
-    With no valid root the loss is 0, and so is its gradient.
+    With no valid root (``count`` 0) the loss is 0, and so is its
+    gradient.
     """
     b, h, w, _ = output.shape
     ys = rdepth[..., 0].to(torch.int64).clamp(0, h - 1)
@@ -58,8 +64,32 @@ def depth_loss(output: torch.Tensor, rdepth: torch.Tensor) -> torch.Tensor:
     batch_idx = torch.arange(b, device=output.device)[:, None]
     pred = output[batch_idx, ys, xs, 0]                      # [B, P]
     err = torch.abs(pred - z) * valid
-    count = valid.sum()
-    return torch.where(count > 0, err.sum() / count.clamp(min=1), 0.0)
+    if count is None:
+        count = valid.sum()
+    divisor = torch.where(count > 0, count, 1)
+    return torch.where(count > 0, err.sum() / divisor, 0.0)
+
+
+def root_count(rdepth: torch.Tensor) -> torch.Tensor:
+    """The divisor of :func:`depth_loss` for this rank's batch: the number
+    of valid roots (Z > 0), or in a group of several ranks their global
+    number divided by the world size. Each rank's loss is then its share of
+    the global batch's, scaled so that the ranks' mean is the global loss
+    and their mean gradient the global gradient, as the JAX package takes
+    the count over the global batch. Raises, on every rank alike, when the
+    ranks' batches differ in size: the means over samples of the other
+    losses decompose over ranks only for equal batches."""
+    count = (rdepth[..., 2] > 0).sum()
+    if process_count() == 1:
+        return count
+    b = rdepth.shape[0]
+    local = torch.stack([count.double(),
+                         *count.new_tensor([b, b * b], dtype=torch.float64)])
+    mean_count, mean_b, mean_b2 = all_reduce_mean(local).unbind()
+    if float(mean_b2) != float(mean_b) ** 2:
+        raise ValueError("the ranks' local batches differ in size; data "
+                         "parallelism needs equal batches")
+    return mean_count.to(rdepth.dtype)
 
 
 def _label_index(device: torch.device):
@@ -87,9 +117,12 @@ def smap_loss(outputs: Dict[str, List[List[torch.Tensor]]],
       rdepth: ``[B, P, 3]`` sparse root-depth targets.
 
     Returns ``total_loss`` and the finest scale's ``loss_2d``,
-    ``loss_bone`` and ``loss_root`` summed over stages.
+    ``loss_bone`` and ``loss_root`` summed over stages. In a group of
+    several ranks these are this rank's share (:func:`root_count`): their
+    mean over the ranks is the global batch's loss.
     """
     kpt_paf = NUM_JOINTS + 2 * NUM_LIMBS                     # 43
+    count = root_count(rdepth)
     idx_2d, idx_z = _label_index(labels.device)
     stage_num = len(outputs["heatmap_2d"])
     zero = torch.zeros((), device=labels.device)
@@ -107,7 +140,7 @@ def smap_loss(outputs: Dict[str, List[List[torch.Tensor]]],
             l3d = joints_l2_loss(outputs["det_d"][i][j],
                                  valids[:, kpt_paf:], lbl[..., idx_z],
                                  ohkm=use_ohkm, topk=cfg.topk, paf_num=0)
-            ld = depth_loss(outputs["root_d"][i][j], rdepth)
+            ld = depth_loss(outputs["root_d"][i][j], rdepth, count)
             if j == 3:
                 loss_2d = loss_2d + l2d
                 loss_bone = loss_bone + l3d

@@ -30,6 +30,7 @@ from smap_tpu_torch.ops.fused_block import (fused_bottleneck,
 from smap_tpu_torch.ops.int8_conv import (act_absmax, int8_conv2d,
                                           pack_int8_weights,
                                           scale_from_absmax)
+from smap_tpu_torch.parallel.distributed import all_reduce_sum, process_count
 
 # A bottleneck fuses only when its height is a multiple of this: the JAX
 # package's condition (its kernel's row band), kept so that the same blocks
@@ -47,23 +48,54 @@ class _FlaxBatchNorm:
     The batch statistics come from ``torch.native_batch_norm``, which
     normalises in float32 whatever the input's dtype; the variance is taken
     back from its inverse standard deviation in float64. ``frozen`` (set by
-    :func:`frozen_batch_stats`) leaves the running statistics alone."""
+    :func:`frozen_batch_stats`) leaves the running statistics alone.
+
+    In a process group of more than one rank the statistics are those of
+    the global batch, as the JAX package's under SPMD: per-channel sums of
+    x and x^2 and the count, all-reduced, give mean(x^2) - mean(x)^2
+    (Flax's ``use_fast_variance``, clipped at 0), and the backward carries
+    the statistics' gradient to every rank through the all-reduce."""
 
     frozen = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        y, mean, invstd = torch.native_batch_norm(
-            x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+        if process_count() > 1:
+            y, mean, var = self._global_batch_norm(x)
+        else:
+            y, mean, invstd = torch.native_batch_norm(
+                x, self.weight, self.bias, None, None, True, 0.0, self.eps)
+            var = None
         if not self.frozen:
             with torch.no_grad():
-                var = invstd.double().pow(-2).sub_(self.eps).clamp_(min=0)
+                if var is None:
+                    var = invstd.double().pow(-2).sub_(self.eps).clamp_(min=0)
                 m = self.momentum
                 self.running_mean.mul_(1 - m).add_(mean, alpha=m)
                 self.running_var.mul_(1 - m).add_(var.float(), alpha=m)
                 self.num_batches_tracked.add_(1)
         return y
+
+    def _global_batch_norm(self, x: torch.Tensor):
+        """(normalized x in its dtype, mean, variance) by the global
+        batch's statistics, in float32 (float64 for a float64 x), with
+        Flax's arithmetic: ``(x - mean) * (rsqrt(var + eps) * scale) +
+        bias``."""
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        dims = [d for d in range(x.dim()) if d != 1]
+        count = torch.full((1,), x.numel() // x.shape[1], dtype=xf.dtype,
+                           device=x.device)
+        sums = all_reduce_sum(torch.cat(
+            [xf.sum(dims), (xf * xf).sum(dims), count]))
+        c = x.shape[1]
+        mean = sums[:c] / sums[-1]
+        var = torch.clamp(sums[c:2 * c] / sums[-1] - mean * mean, min=0)
+        shape = [1, c] + [1] * (x.dim() - 2)
+        mul = torch.rsqrt(var + self.eps) * self.weight.to(xf.dtype)
+        y = ((xf - mean.view(shape)) * mul.view(shape)
+             + self.bias.to(xf.dtype).view(shape))
+        return y.to(x.dtype), mean.detach(), var.detach()
 
 
 class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):

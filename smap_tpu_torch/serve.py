@@ -9,6 +9,9 @@
 * Batches run through ``SMAPInference.run_stream`` with one batch in
   flight; an idle watch poll flushes the partial batch and the slot.
 * The decode runs on the capacity ladder (``--adaptive-capacities``).
+* ``--data-parallel`` splits each batch over every card of this host, one
+  replica of the engine a card (the batch size must divide by their
+  count).
 * One JSON line per frame (the ``3d_pairs`` item schema), flushed per
   batch; at the end one summary line on stderr: frames, seconds from the
   first frame read to the last line written, frames/s and the launches of
@@ -149,6 +152,9 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     parser.add_argument("--fuse-bottleneck", action="store_true",
                         help="with --folded: the eligible bottlenecks as "
                         "kernel D")
+    parser.add_argument("--data-parallel", action="store_true",
+                        help="split each batch over every card of this host "
+                        "(batch_size must divide by their count)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu")
     parser.add_argument("--out", default="-",
@@ -165,6 +171,7 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
                                           read_frame)
     from smap_tpu_torch.ops import kernels
     from smap_tpu_torch.ops.postprocess import PoseResults
+    from smap_tpu_torch.parallel import mesh
     from smap_tpu_torch.test_smap import (load_refine_state_dict,
                                           load_smap_state_dict, parse_ladder)
 
@@ -186,13 +193,20 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             [wire_frame(read_frame(p), cfg)[0] for p in calib_paths])]
         quantized = "static"
 
+    devices = None
+    if args.data_parallel:
+        devices = mesh.local_mesh(args.device)
+        if args.batch_size % len(devices):
+            parser.error(f"--batch_size {args.batch_size} must be divisible "
+                         f"by the {len(devices)} cards")
     engine = SMAPInference(state_dict, cfg, refine_state_dict,
                            device=args.device, quantized=quantized,
                            fuse_stem=args.fuse_stem,
                            fuse_bottleneck=args.fuse_bottleneck,
                            calibration_batches=calibration_batches,
                            adaptive_capacities=parse_ladder(
-                               args.adaptive_capacities))
+                               args.adaptive_capacities),
+                           devices=devices)
 
     if os.path.isdir(args.source):
         def frames():

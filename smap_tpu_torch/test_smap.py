@@ -12,12 +12,22 @@ The result goes to ``<output-dir>/stage3_root2_{mode}_{data_mode}
 {_json_name}.json``. Weights: a reference-layout ``.pth`` (``-p``) or the
 latest checkpoint of a training run (``--ckpt-dir``, the ``--output-dir``
 of ``smap_tpu_torch.train_smap``). Runs on ``--device`` (the card unless
-``cpu`` is asked for). PNG frames need no OpenCV; JPEG does.
+``cpu`` is asked for). PNG frames need no OpenCV; JPEG does. At the end
+one JSON line on stderr gives this process's launches of each CUDA
+kernel (A and B once a batch).
+
+``--data-parallel`` splits each batch over every card of this host (one
+process). ``--distributed`` (under ``torchrun``, or with
+``--coordinator`` / ``--num-processes`` / ``--process-id`` in each
+process): each rank takes a contiguous shard of the labeled set, the
+results are gathered in rank order, and rank 0 writes the JSON.
 
 Usage:
   python -m smap_tpu_torch.test_smap -p SMAP.pth --dataset_path imgs
   python -m smap_tpu_torch.test_smap -t generate_train -p SMAP.pth \\
       --test-json annot.json --test-root imgs -d generation
+  torchrun --nproc-per-node 8 -m smap_tpu_torch.test_smap --distributed \\
+      -t generate_result -p SMAP.pth --test-json annot.json --test-root imgs
 """
 
 from __future__ import annotations
@@ -25,11 +35,13 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 from typing import Dict, Optional, Sequence
 
 import torch
 
 from smap_tpu_torch.config import Config
+from smap_tpu_torch.parallel import distributed
 
 
 def load_smap_state_dict(args) -> Dict[str, torch.Tensor]:
@@ -72,7 +84,8 @@ def parse_ladder(text: str):
 
 
 def main(argv: Optional[Sequence[str]] = None) -> str:
-    """Runs the CLI; returns the path of the result JSON."""
+    """Runs the CLI; returns the path of the result JSON (written by the
+    main process)."""
     parser = argparse.ArgumentParser(
         prog="python -m smap_tpu_torch.test_smap",
         description=__doc__.split("\n\n")[0])
@@ -102,14 +115,30 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     parser.add_argument("--adaptive-capacities", default="",
                         help="peak-capacity ladder for run_inference, e.g. "
                         "8,16,40 ('' decodes at assoc_peaks)")
+    parser.add_argument("--data-parallel", action="store_true",
+                        help="split each batch over every card of this host "
+                        "(batch_size must divide by their count)")
     parser.add_argument("--device", default="cuda",
-                        help="cuda (default) or cpu")
+                        help="cuda (default; under NCCL the rank's own "
+                        "card) or cpu")
+    distributed.add_flags(parser)
     args = parser.parse_args(argv)
 
+    distributed.initialize_from(args)
+    try:
+        return _run(parser, args)
+    finally:
+        distributed.finalize_distributed()
+
+
+def _run(parser: argparse.ArgumentParser, args: argparse.Namespace) -> str:
     from smap_tpu_torch.data.datasets import JointDataset, load_annotations
     from smap_tpu_torch.inference import (SMAPInference, run_inference,
                                           run_labeled_inference)
+    from smap_tpu_torch.ops import kernels
+    from smap_tpu_torch.parallel import mesh
 
+    kernels.reset_launch_counts()
     cfg = Config()
     state_dict = load_smap_state_dict(args)
     refine_state_dict = load_refine_state_dict(args)
@@ -123,9 +152,11 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
         run_inference(args.dataset_path, state_dict, cfg,
                       refine_state_dict=refine_state_dict,
                       do_flip=bool(args.do_flip), batch_size=args.batch_size,
-                      output_json=out_json, device=args.device,
+                      output_json=(out_json if distributed.is_main_process()
+                                   else None), device=args.device,
                       adaptive_capacities=parse_ladder(
-                          args.adaptive_capacities))
+                          args.adaptive_capacities),
+                      data_parallel=args.data_parallel)
     else:
         if not args.test_json:
             parser.error(f"-t {args.test_mode} needs --test-json and "
@@ -135,13 +166,23 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
                                {"MUPOTS": args.test_root,
                                 "MUCO": args.test_root},
                                cfg, stage, with_augmentation=False)
+        devices = mesh.local_mesh(args.device) if args.data_parallel else None
         engine = SMAPInference(state_dict, cfg, refine_state_dict,
-                               bool(args.do_flip), device=args.device)
-        result = run_labeled_inference(dataset, engine, mode=args.test_mode,
-                                       batch_size=args.batch_size)
-        with open(out_json, "w") as f:
-            json.dump(result, f)
-    print(f"results written to {out_json}")
+                               bool(args.do_flip), device=args.device,
+                               devices=devices)
+        result = run_labeled_inference(
+            dataset, engine, mode=args.test_mode, batch_size=args.batch_size,
+            shard=distributed.process_index(),
+            num_shards=distributed.process_count(),
+            gather=distributed.process_count() > 1)
+        if distributed.is_main_process():
+            with open(out_json, "w") as f:
+                json.dump(result, f)
+    print(json.dumps({"rank": distributed.process_index(),
+                      "kernel_launches": dict(kernels.LAUNCHES)}),
+          file=sys.stderr, flush=True)
+    if distributed.is_main_process():
+        print(f"results written to {out_json}")
     return out_json
 
 

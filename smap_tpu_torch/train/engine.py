@@ -8,6 +8,12 @@ steps (a log line and a ``metrics.jsonl`` record) and checkpoints every
 ``max_iter``. A checkpoint holds the model's state_dict, the optimizer's
 state, the schedule's position and the step, written with ``torch.save``;
 a restored state continues at the exact iteration.
+
+In a process group (``parallel.distributed``) each rank trains on its
+share of the global batch (``train.step``): the device count that scales
+the learning rate and the schedule is the world size, every rank
+restores, and rank 0 alone writes checkpoints, ``metrics.jsonl`` and
+``log.txt`` (the other ranks log warnings only, to the console).
 """
 
 from __future__ import annotations
@@ -22,6 +28,9 @@ import torch
 
 from smap_tpu_torch.config import Config
 from smap_tpu_torch.models.smap import init_smap
+from smap_tpu_torch.parallel.distributed import (is_main_process,
+                                                 process_count,
+                                                 process_index)
 from smap_tpu_torch.runtime import get_device
 from smap_tpu_torch.train.step import (TrainBatch, TrainState,
                                        create_train_state, train_step,
@@ -32,15 +41,17 @@ _FORMAT = "%(asctime)s %(name)s %(levelname)s %(message)s"
 
 
 def get_logger(name: str = "smap_tpu_torch",
-               log_file: Optional[str] = None) -> logging.Logger:
+               log_file: Optional[str] = None,
+               rank: int = 0) -> logging.Logger:
     """A logger printing INFO and above, and writing them to ``log_file``
-    too (its directory is made); handlers are added once per name."""
+    too (its directory is made); handlers are added once per name. A rank
+    other than 0 prints warnings and above only, and writes no file."""
     logger = logging.getLogger(name)
     if not logger.handlers:
-        logger.setLevel(logging.INFO)
+        logger.setLevel(logging.INFO if rank == 0 else logging.WARNING)
         logger.propagate = False
         handlers: List[logging.Handler] = [logging.StreamHandler()]
-        if log_file:
+        if log_file and rank == 0:
             os.makedirs(os.path.dirname(log_file) or ".", exist_ok=True)
             handlers.append(logging.FileHandler(log_file))
         for h in handlers:
@@ -120,19 +131,23 @@ class TrainerConfig:
 
 class Trainer:
     """SMAP trainer on one device (``"cuda"`` unless the caller asks for
-    the CPU; no card raises)."""
+    the CPU; no card raises), one rank of the process group when there is
+    one."""
 
     def __init__(self, cfg: Config, trainer_cfg: TrainerConfig = TrainerConfig(),
                  device="cuda"):
         self.cfg = cfg
         self.tc = trainer_cfg
         self.device = get_device(device)
-        self.num_devices = 1
+        self.num_devices = process_count()
+        self.is_main = is_main_process()
         out = trainer_cfg.output_dir
         self.logger = get_logger(f"smap_tpu_torch.train:{os.path.abspath(out)}",
-                                 log_file=os.path.join(out, "log.txt"))
+                                 log_file=os.path.join(out, "log.txt"),
+                                 rank=process_index())
         self.ckpt = CheckpointManager(os.path.join(out, "checkpoints"))
-        self.metrics = MetricWriter(os.path.join(out, "tb_dir"))
+        self.metrics = (MetricWriter(os.path.join(out, "tb_dir"))
+                        if self.is_main else None)
 
     def init_state(self, rng_seed: int = 0) -> TrainState:
         """A fresh state: ``init_smap(seed)`` in train mode on the device."""
@@ -169,7 +184,8 @@ class Trainer:
             it = iteration + 1
             state, losses = train_step(state, batch, cfg=self.cfg,
                                        accum_steps=self.tc.grad_accum_steps)
-            if it % self.tc.log_every == 0 or it == max_iter:
+            if self.is_main and (it % self.tc.log_every == 0
+                                 or it == max_iter):
                 values = {k: float(v) for k, v in losses.items()}
                 self.metrics.write_scalars(it, values)
                 dt = time.time() - t0
@@ -181,7 +197,7 @@ class Trainer:
                     "Iter:%d, %s, ETA %dh%02dm", it,
                     ", ".join(f"{k}: {v:.3f}" for k, v in values.items()),
                     eta_s // 3600, eta_s % 3600 // 60)
-            if it % ckpt_period == 0 or it == max_iter:
+            if self.is_main and (it % ckpt_period == 0 or it == max_iter):
                 self.ckpt.save(it, state)
                 self.logger.info("checkpoint saved at iteration %d", it)
             if it >= max_iter:
@@ -190,7 +206,8 @@ class Trainer:
 
     def close(self) -> None:
         """Closes the metrics file and the log file."""
-        self.metrics.close()
+        if self.metrics is not None:
+            self.metrics.close()
         for h in list(self.logger.handlers):
             h.close()
             self.logger.removeHandler(h)

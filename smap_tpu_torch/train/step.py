@@ -8,6 +8,19 @@ microbatches of the batch: each normalises by its own statistics, which
 chain through the microbatches; the gradients are summed, divided by A and
 applied in one optimizer step, and the losses are averaged.
 
+In a process group (``parallel.distributed``, one rank a card) each rank
+takes its share of the global batch: BatchNorm normalises by the global
+batch's statistics and the root-depth loss divides by its global count
+(``models.layers``, ``losses``), the gradients are averaged over the ranks
+(one all-reduce of a flat bucket) before the optimizer step, and the
+reported losses are the global batch's. Every rank starts from rank 0's
+weights, so the ranks hold the same weights after every step, as the JAX
+package's replicated parameters under SPMD. (DistributedDataParallel is
+not used: its hooks all-reduce in every microbatch's backward unless each
+but the last runs under ``no_sync``, remat's re-entrant checkpoints need
+its ``static_graph``, and one all-reduce after the last microbatch is
+all the step needs.)
+
 Not ported, being TPU-runtime workarounds with no effect on the math: the
 packed state (``PackedTrainState``), sharding and donation annotations and
 scanned multi-step programs.
@@ -26,6 +39,10 @@ from smap_tpu_torch.config import Config
 from smap_tpu_torch.data.labels import synthesize_labels
 from smap_tpu_torch.losses import smap_loss
 from smap_tpu_torch.models.smap import SMAP
+from smap_tpu_torch.parallel.distributed import (all_reduce_mean,
+                                                 average_gradients,
+                                                 broadcast_module,
+                                                 process_count)
 from smap_tpu_torch.runtime import compute_dtype
 from smap_tpu_torch.train.solver import make_optimizer
 
@@ -77,6 +94,10 @@ def training_model(model: SMAP, device: torch.device) -> SMAP:
 
 def create_train_state(model: SMAP, cfg: Config,
                        num_devices: int = 1) -> TrainState:
+    """The optimizer and schedule for ``num_devices`` devices on
+    ``model``; in a process group, rank 0's weights and statistics copied
+    into every rank's model first."""
+    broadcast_module(model)
     optimizer, scheduler = make_optimizer(model.parameters(), cfg.train,
                                           num_devices)
     return TrainState(model=model, optimizer=optimizer, scheduler=scheduler)
@@ -121,6 +142,11 @@ def train_step_with_labels(state: TrainState, batch: TrainBatch,
             if p.grad is not None:
                 p.grad.div_(accum_steps)
         sums = {k: v / accum_steps for k, v in sums.items()}
+    average_gradients(model.parameters())
+    if process_count() > 1:
+        names = list(sums)
+        means = all_reduce_mean(torch.stack([sums[k] for k in names]))
+        sums = dict(zip(names, means.unbind()))
     state.optimizer.step()
     state.scheduler.step()
     state.step += 1

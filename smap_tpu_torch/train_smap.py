@@ -8,10 +8,19 @@ frames need no OpenCV, JPEG does), and trains on one device with
 ``<output-dir>/checkpoints/<step>.pt``. ``--resume`` continues from the
 latest checkpoint at its exact iteration.
 
+Data parallel, one process a card: under ``torchrun`` (``--distributed``
+reads its environment) or with ``--coordinator host:port
+--num-processes N --process-id R`` in each process. Each rank loads its
+shard of every global batch (``--batch-per-device`` samples), the global
+batch being that times the world size, which also scales the learning
+rate and the schedule; rank 0 writes the checkpoints and logs.
+
 Usage:
   python -m smap_tpu_torch.train_smap --muco-json muco.json \\
       --muco-root imgs [--coco-json ... --coco-root ...] [--resume] \\
       [--max-steps N] [--batch-per-device B] [--num-workers W]
+  torchrun --nproc-per-node 8 -m smap_tpu_torch.train_smap --distributed \\
+      --muco-json muco.json --muco-root imgs
 """
 
 from __future__ import annotations
@@ -20,6 +29,7 @@ import argparse
 from typing import Optional, Sequence
 
 from smap_tpu_torch.config import Config
+from smap_tpu_torch.parallel import distributed
 
 
 def main(argv: Optional[Sequence[str]] = None):
@@ -52,7 +62,9 @@ def main(argv: Optional[Sequence[str]] = None):
                         help="PyTorch's deterministic algorithms: the run "
                         "repeats bit for bit")
     parser.add_argument("--device", default="cuda",
-                        help="cuda (default) or cpu")
+                        help="cuda (default; under NCCL the rank's own "
+                        "card) or cpu")
+    distributed.add_flags(parser)
     args = parser.parse_args(argv)
 
     from smap_tpu_torch.data.datasets import (JointDataset, load_annotations,
@@ -74,27 +86,34 @@ def main(argv: Optional[Sequence[str]] = None):
                            with_augmentation=True,
                            with_mds=cfg.train.with_mds)
 
-    trainer = Trainer(cfg, TrainerConfig(
-        output_dir=args.output_dir, log_every=args.log_every,
-        seed=args.seed, grad_accum_steps=args.grad_accum_steps),
-        device=args.device)
+    distributed.initialize_from(args)
     try:
-        batch = args.batch_per_device or cfg.train.img_per_device
-        max_iter = args.max_steps or trainer.scaled_max_iter()
-        state = trainer.init_state(args.seed)
-        if args.resume:
-            state = trainer.ckpt.restore(state)
-            trainer.logger.info("resumed at iteration %d", state.step)
-        batches = train_iterator(dataset, batch, max_iter,
-                                 start_iter=state.step, seed=args.seed,
-                                 num_workers=args.num_workers)
+        trainer = Trainer(cfg, TrainerConfig(
+            output_dir=args.output_dir, log_every=args.log_every,
+            seed=args.seed, grad_accum_steps=args.grad_accum_steps),
+            device=args.device)
         try:
-            with deterministic_algorithms(args.deterministic):
-                return trainer.fit(batches, state=state, max_steps=max_iter)
+            batch = args.batch_per_device or cfg.train.img_per_device
+            max_iter = args.max_steps or trainer.scaled_max_iter()
+            state = trainer.init_state(args.seed)
+            if args.resume:
+                state = trainer.ckpt.restore(state)
+                trainer.logger.info("resumed at iteration %d", state.step)
+            batches = train_iterator(dataset, batch, max_iter,
+                                     start_iter=state.step, seed=args.seed,
+                                     num_shards=distributed.process_count(),
+                                     shard=distributed.process_index(),
+                                     num_workers=args.num_workers)
+            try:
+                with deterministic_algorithms(args.deterministic):
+                    return trainer.fit(batches, state=state,
+                                       max_steps=max_iter)
+            finally:
+                batches.close()
         finally:
-            batches.close()
+            trainer.close()
     finally:
-        trainer.close()
+        distributed.finalize_distributed()
 
 
 if __name__ == "__main__":

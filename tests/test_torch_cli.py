@@ -112,19 +112,24 @@ def test_iter_video_frames(tmp_path, monkeypatch):
         list(iter_video_frames(str(vid)))
 
 
+def _two_people():
+    """The ideal NHWC maps of two people in a SMALL frame (numpy)."""
+    from scenes import make_scene, render_outputs
+
+    K, people = make_scene(np.random.RandomState(0), num_people=2,
+                           img_w=NET_HW[1], img_h=NET_HW[0], f=100.0)
+    return [m.astype(np.float32) for m in render_outputs(
+        people, K, NET_HW[1], NET_HW[0], *OUT_HW, 4, 1.0, 0.0, 0.0,
+        sigma=0.8)]
+
+
 @pytest.fixture
 def people_in_every_frame(monkeypatch):
     """The engine's forward plus the ideal maps of two people: random
     weights alone decode nobody."""
-    from scenes import make_scene, render_outputs
-
     from smap_tpu_torch.inference import SMAPInference
 
-    K, people = make_scene(np.random.RandomState(0), num_people=2,
-                           img_w=NET_HW[1], img_h=NET_HW[0], f=100.0)
-    scene = [torch.from_numpy(m.astype(np.float32)) for m in render_outputs(
-        people, K, NET_HW[1], NET_HW[0], *OUT_HW, 4, 1.0, 0.0, 0.0,
-        sigma=0.8)]
+    scene = [torch.from_numpy(m) for m in _two_people()]
     real = SMAPInference.forward
 
     def forward(self, images):
@@ -234,19 +239,12 @@ def test_test_smap_run_inference(tmp_path, small_cli, people_in_every_frame):
     assert sum(len(p["pred_3d"]) for p in want["3d_pairs"]) == 10
 
 
-@pytest.mark.parametrize("mode", ["generate_result", "generate_train"])
-def test_test_smap_generate_modes(tmp_path, small_cli, people_in_every_frame,
-                                  mode):
-    """The generate modes read --test-json / --test-root and write
-    run_labeled_inference's JSON."""
-    from smap_tpu_torch import test_smap
-    from smap_tpu_torch.data.datasets import JointDataset, load_annotations
-    from smap_tpu_torch.inference import SMAPInference, run_labeled_inference
-
-    src = _frames_dir(tmp_path / "frames", n=3, seed=2)
+def _labeled_set(tmp_path, n=3):
+    """``n`` PNG frames and their annotation JSON, two people a frame."""
+    src = _frames_dir(tmp_path / "frames", n=n, seed=2)
     records = []
     rng = np.random.RandomState(4)
-    for i in range(3):
+    for i in range(n):
         img = cv2.imread(os.path.join(src, f"f{i}.png"))
         h, w = img.shape[:2]
         bodys = np.zeros((2, 15, 11))
@@ -259,6 +257,19 @@ def test_test_smap_generate_modes(tmp_path, small_cli, people_in_every_frame,
                         "bodys": bodys.tolist()})
     annot = tmp_path / "annot.json"
     annot.write_text(json.dumps({"root": records}))
+    return src, annot
+
+
+@pytest.mark.parametrize("mode", ["generate_result", "generate_train"])
+def test_test_smap_generate_modes(tmp_path, small_cli, people_in_every_frame,
+                                  mode):
+    """The generate modes read --test-json / --test-root and write
+    run_labeled_inference's JSON."""
+    from smap_tpu_torch import test_smap
+    from smap_tpu_torch.data.datasets import JointDataset, load_annotations
+    from smap_tpu_torch.inference import SMAPInference, run_labeled_inference
+
+    src, annot = _labeled_set(tmp_path)
     pth = tmp_path / "smap.pth"
     torch.save(small_cli, pth)
     out = test_smap.main(["-t", mode, "-d", "generation", "-p", str(pth),
@@ -365,6 +376,137 @@ def _run_module(module, *args):
     return subprocess.run([sys.executable, "-m", module, *args], cwd=ROOT,
                           env=env, capture_output=True, text=True,
                           timeout=600)
+
+
+def test_data_parallel_flag_shards_over_the_local_mesh(
+        tmp_path, small_cli, people_in_every_frame, monkeypatch):
+    """--data-parallel serves every batch over parallel.mesh.local_mesh
+    (patched to two CPU replicas here): serve's lines and test_smap's JSON
+    equal the one-device runs."""
+    from smap_tpu_torch import serve, test_smap
+    from smap_tpu_torch.inference import SMAPInference
+    from smap_tpu_torch.parallel import mesh
+
+    asked, replicas = [], []
+    monkeypatch.setattr(mesh, "local_mesh", lambda device: (
+        asked.append(device) or mesh.make_mesh([device, device])))
+    real_init = SMAPInference.__init__
+
+    def init(self, *args, **kw):
+        real_init(self, *args, **kw)
+        replicas.append(len(self.replicas))
+
+    monkeypatch.setattr(SMAPInference, "__init__", init)
+    src = _frames_dir(tmp_path / "frames")
+    pth = tmp_path / "smap.pth"
+    torch.save(small_cli, pth)
+    outs = {}
+    for flags in ([], ["--data-parallel"]):
+        name = "dp" if flags else "one"
+        serve.main(["--source", src, "-p", str(pth), "--out",
+                    str(tmp_path / f"{name}.jsonl"), "--batch_size", "2",
+                    "--adaptive-capacities", LADDER, "--device", "cpu",
+                    *flags])
+        outs[name] = test_smap.main(
+            ["-p", str(pth), "--dataset_path", src, "--batch_size", "2",
+             "--output-dir", str(tmp_path / name), "--device", "cpu",
+             *flags])
+    assert asked == ["cpu", "cpu"]
+    assert replicas.count(2) == 2
+    assert ((tmp_path / "dp.jsonl").read_text()
+            == (tmp_path / "one.jsonl").read_text())
+    with open(outs["dp"]) as f, open(outs["one"]) as g:
+        assert json.load(f) == json.load(g)
+    with pytest.raises(SystemExit):
+        serve.main(["--source", src, "-p", str(pth), "--batch_size", "3",
+                    "--device", "cpu", "--data-parallel"])
+
+
+def test_new_flags_still_default_to_the_card(tmp_path, small_cli):
+    """Without --device, --data-parallel asks for every card and
+    --distributed for a rank's own: on a host with none they raise; they
+    do not run on the CPU."""
+    from smap_tpu_torch import serve, test_smap
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card")
+    pth = tmp_path / "smap.pth"
+    torch.save(small_cli, pth)
+    src = _frames_dir(tmp_path / "frames", n=1)
+    res = ["--output-dir", str(tmp_path / "res")]
+    for main, argv in ((serve.main, ["--source", src]),
+                       (test_smap.main, ["--dataset_path", src, *res])):
+        with pytest.raises(RuntimeError, match="cuda|card"):
+            main([*argv, "-p", str(pth), "--data-parallel"])
+    with pytest.raises(RuntimeError, match="cuda|card"):
+        test_smap.main(["--dataset_path", src, "-p", str(pth), *res,
+                        "--distributed", "--coordinator", "localhost:1",
+                        "--num-processes", "2", "--process-id", "0",
+                        "--backend", "nccl"])
+
+
+def test_test_smap_distributed_two_ranks(tmp_path, small_cli,
+                                         people_in_every_frame):
+    """test_smap -t generate_result --distributed in two gloo ranks:
+    each rank its contiguous shard, the results gathered, and rank 0 alone
+    writes run_labeled_inference's JSON over the whole set."""
+    from smap_tpu_torch.data.datasets import JointDataset, load_annotations
+    from smap_tpu_torch.inference import SMAPInference, run_labeled_inference
+    from smap_tpu_torch.parallel.distributed import spawn_ranks
+    from torch_dist_workers import cli_rank
+
+    src, annot = _labeled_set(tmp_path, n=5)
+    pth = tmp_path / "smap.pth"
+    torch.save(small_cli, pth)
+    argvs = [["-t", "generate_result", "-p", str(pth), "--test-json",
+              str(annot), "--test-root", src, "--batch_size", "2",
+              "--output-dir", str(tmp_path / f"res{r}"), "--distributed"]
+             for r in range(2)]
+    outs = spawn_ranks(cli_rank, 2, "test_smap", argvs, SMALL,
+                       _two_people(), timeout_s=300)
+    assert os.path.exists(outs[0]) and not os.path.exists(outs[1])
+    dataset = JointDataset(load_annotations(str(annot)), {"MUPOTS": src},
+                           SMALL, "test")
+    want = run_labeled_inference(
+        dataset, SMAPInference(small_cli, SMALL, device="cpu"),
+        batch_size=2)
+    with open(outs[0]) as f:
+        got = json.load(f)
+    assert got == json.loads(json.dumps(want))
+    assert len(got["3d_pairs"]) == 5
+
+
+def test_train_smap_distributed_two_ranks(tmp_path, small_cli):
+    """train_smap --distributed in two gloo ranks, one sample a rank: both
+    end on the same parameters; rank 0 alone writes the checkpoint,
+    metrics.jsonl and log.txt (each rank is given its own --output-dir to
+    show it)."""
+    from smap_tpu_torch.parallel.distributed import spawn_ranks
+    from torch_dist_workers import cli_rank
+
+    data = _train_set(tmp_path)
+    argvs = [["--muco-json", data["MUCO"][0], "--muco-root",
+              data["MUCO"][1], "--batch-per-device", "1", "--log-every",
+              "1", "--max-steps", "2", "--output-dir",
+              str(tmp_path / f"run{r}"), "--distributed"] for r in range(2)]
+    outs = spawn_ranks(cli_rank, 2, "train_smap", argvs, SMALL,
+                       timeout_s=300)
+    assert [o["step"] for o in outs] == [2, 2]
+    assert outs[0]["params"] == outs[1]["params"]
+    assert os.listdir(tmp_path / "run0" / "checkpoints") == ["2.pt"]
+    assert [r["step"] for r in _losses(tmp_path / "run0")] == [1, 2]
+    assert (tmp_path / "run0" / "log.txt").exists()
+    assert os.listdir(tmp_path / "run1" / "checkpoints") == []
+    assert not (tmp_path / "run1" / "tb_dir").exists()
+    assert not (tmp_path / "run1" / "log.txt").exists()
+
+
+@pytest.mark.parametrize("module", ["eval_mupots", "eval_panoptic"])
+def test_eval_entry_points_run_as_modules(module):
+    out = _run_module(f"smap_tpu_torch.{module}", "--help")
+    assert out.returncode == 0, out.stderr
+    assert f"python -m smap_tpu_torch.{module}" in out.stdout
+    assert "--result-json" in out.stdout
 
 
 @pytest.mark.parametrize("module", ["serve", "test_smap", "train_smap"])

@@ -1,5 +1,5 @@
-"""The port imports no JAX: every module of the serving and training
-slices and every entry point loads in a fresh interpreter without jax,
+"""The port imports no JAX: every module of the serving, training,
+data-parallel and evaluation slices and every entry point loads in a fresh interpreter without jax,
 flax, the JAX package, OpenCV or triton."""
 
 import os
@@ -43,11 +43,20 @@ SLICE_MODULES = (
     "smap_tpu_torch.train.refine",
     "smap_tpu_torch.evaluation",
     "smap_tpu_torch.evaluation.register",
+    "smap_tpu_torch.evaluation.mupots",
+    "smap_tpu_torch.evaluation.mupots_data",
+    "smap_tpu_torch.evaluation.convert",
+    "smap_tpu_torch.evaluation.panoptic",
+    "smap_tpu_torch.parallel",
+    "smap_tpu_torch.parallel.distributed",
+    "smap_tpu_torch.parallel.mesh",
     "smap_tpu_torch.serve",
     "smap_tpu_torch.test_smap",
     "smap_tpu_torch.train_smap",
     "smap_tpu_torch.train_refinenet",
     "smap_tpu_torch.test_refinenet",
+    "smap_tpu_torch.eval_mupots",
+    "smap_tpu_torch.eval_panoptic",
 )
 
 
