@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, data-parallel and
-evaluation paths once on a CUDA card.
+evaluation paths, its traces and its tools once on a CUDA card.
 
     python3 chip_smoke.py          # from the repository root, one card
     python3 chip_smoke.py --data-parallel-only   # build and phase 10 alone
@@ -108,13 +108,31 @@ exits non-zero with no result line):
    writes: exact predictions score PCK 100.00, MPJPE 0.0 and ordinal
    1.0000, perturbed ones ``MUPOTS_PINNED`` (tests/test_torch_eval.py
    pins them to the JAX package's scripts).
+11. tools and tracing, on what phase 9 left: (a) ``test_smap -t
+   run_inference --profile-dir`` as a process on phase 9's frames: one
+   Chrome trace whose device kernels count A and B once a batch, as the
+   process's ``LAUNCHES`` and the ``annotate`` spans, and the JSON of the
+   run without the flag (process seconds of both); (b) one folded-fused
+   ``run_batch`` inside ``utils.profiling.trace``: 1 C, 9 D, 1 A and 1 B
+   (run_batch ms with and without the trace, in turns); (c)
+   ``Trainer.fit`` at ``Config()``, batch 8, phase 8's seeded batches,
+   deterministic algorithms, 5 steps with a trace of steps 3-4, against
+   the untraced run from the same state (twice): losses, weights,
+   statistics and Adam bit-equal, checkpoints at 4 and 5, logs at 2, 4 and
+   5; ms a step of each run; (d) the native preprocessing
+   library built on this machine, its letterbox and normalize on a
+   1080x1920 frame within tests/test_native.py's tolerances of the numpy
+   path, ms a frame of each; (e) ``convert_checkpoint`` both ways as
+   processes: phase 9's ``.pth`` -> a training checkpoint -> a ``.pth``
+   with the same tensors bit for bit.
 
 The last lines are the kernels' JSON summary (per kernel: times, launches
 in the main path and per forward or batch, launches in the serve CLI's
-three runs (``cli_launches``) and in phase 10's (b) and (c)
-(``dp_launches``), the least time the card could
-take at its published peaks, ``bound_ms``, with what bounds it and the share
-of it reached), the card's name and power limit (nvidia-smi), and
+three runs (``cli_launches``), in phase 10's (b) and (c)
+(``dp_launches``) and in phase 11's traces of (a) and (b)
+(``trace_launches``: the trace's device kernels), the least time the card
+could take at its published peaks, ``bound_ms``, with what bounds it and
+the share of it reached), the card's name and power limit (nvidia-smi), and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
 ``smap_tpu_torch`` package beside this file, it exits non-zero and prints
 no result.
@@ -2163,10 +2181,13 @@ def train_cli(dev, card: str, frame_dir: str) -> None:
         n = sum(1 for _ in it)
         rates[workers] = n * TRAIN_BATCH / (time.perf_counter() - t0)
         it.close()
+    from smap_tpu_torch.data.native import native_available
+
     log(f"entry points: train_iterator at {FRAME_HW[0]}x{FRAME_HW[1]} "
-        f"(imread, rotate, resize, crop, flip, normalize): "
-        f"{rates[0]:.2f} samples/s with no worker, {rates[4]:.2f} with 4 "
-        f"(phase 8's Trainer.fit takes {TRAIN_BATCH} a step) [{card}]")
+        f"(imread, rotate, resize, crop, flip, normalize; the native "
+        f"library: {native_available()}): {rates[0]:.2f} samples/s with "
+        f"no worker, {rates[4]:.2f} with 4 (phase 8's Trainer.fit takes "
+        f"{TRAIN_BATCH} a step) [{card}]")
 
 
 def phase_entry_points(dev, card: str, tmp: str):
@@ -2712,6 +2733,309 @@ def phase_data_parallel(dev, card: str, tmp: str, sd_path: str, sd,
     return launches
 
 
+# Phase 11 (tools and tracing). The CUDA kernel each wrapper launches, by
+# the symbol the trace records it under.
+KERNEL_SYMBOLS = {"paf_score": "paf_score_kernel",
+                  "associate": "associate_kernel",
+                  "fused_stem": "fused_stem_kernel",
+                  "fused_bottleneck": "fused_bottleneck_kernel",
+                  "int8_conv": "int8_conv_kernel"}
+# (c): Trainer.fit at Config() with the checkpoint period 4 steps (one
+# device, unscaled), log every 2, PROFILE_STEPS steps, the trace over
+# steps (PROFILE_FIRST, PROFILE_FIRST + 2]: the JAX package's cadence
+# (tests/test_engine.py).
+PROFILE_STEPS, PROFILE_FIRST = 5, 2
+PROFILE_CKPTS, PROFILE_LOGGED = [4, 5], [2, 4, 5]
+# (d): tests/test_native.py's tolerances: the letterbox within 2 grey
+# levels on 99% of values and 12 at most; the normalize within 1e-5.
+NATIVE_LSB_SHARE, NATIVE_LSB_MAX, NATIVE_NORM_ATOL = 0.99, 12, 1e-5
+
+
+def trace_file(log_dir: str) -> str:
+    """The one Chrome trace under ``log_dir``."""
+    files = [f for f in os.listdir(log_dir) if f.endswith(".pt.trace.json")]
+    if len(files) != 1:
+        raise AssertionError(f"tools: {len(files)} traces in {log_dir}: "
+                             f"{files}")
+    return os.path.join(log_dir, files[0])
+
+
+def trace_counts(path: str):
+    """(launches of each kernel of A-E among the trace's device kernels,
+    its ``annotate`` spans by kernel, its device kernels in all)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    device = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    spans = [e.get("name") for e in events
+             if e.get("cat") == "user_annotation"]
+    return ({k: sum(sym in n for n in device)
+             for k, sym in KERNEL_SYMBOLS.items()},
+            {k: spans.count(k) for k in KERNEL_SYMBOLS}, len(device))
+
+
+def cli_launches_line(stderr: str) -> dict:
+    """The kernel launches that a test_smap process printed."""
+    for line in reversed(stderr.splitlines()):
+        if line.startswith("{") and "kernel_launches" in line:
+            return json.loads(line)["kernel_launches"]
+    raise AssertionError(f"no kernel_launches line in:\n{stderr[-2000:]}")
+
+
+def traced_test_smap(tmp: str, sd_path: str, frame_dir: str,
+                     card: str) -> dict:
+    """(a) test_smap -t run_inference on phase 9's frames, with and
+    without --profile-dir: the same JSON, and the trace's A and B
+    launches those the process counted, one each a batch."""
+    from smap_tpu_torch.inference import image_paths
+
+    frames = len(image_paths(frame_dir))
+    runs = {}
+    for name in ("plain", "traced"):
+        out_dir = os.path.join(tmp, f"tools_{name}")
+        extra = (["--profile-dir", os.path.join(tmp, "tools_prof")]
+                 if name == "traced" else [])
+        out = run_cli("test_smap", "-t", "run_inference", "-p", sd_path,
+                      "--dataset_path", frame_dir, "--batch_size",
+                      str(BATCH), "--output-dir", out_dir, *extra)
+        with open(os.path.join(out_dir, "stage3_root2_run_inference_test"
+                                        ".json")) as f:
+            runs[name] = (json.load(f), cli_launches_line(out.stderr),
+                          out.seconds)
+    if runs["traced"][0] != runs["plain"][0]:
+        raise AssertionError("tools: test_smap --profile-dir changed the "
+                             "result JSON")
+    batches = -(-frames // BATCH)
+    launches = runs["traced"][1]
+    path = trace_file(os.path.join(tmp, "tools_prof"))
+    counted, spans, device = trace_counts(path)
+    want = dict(paf_score=batches, associate=batches, fused_stem=0,
+                fused_bottleneck=0, int8_conv=0)
+    if not (launches == runs["plain"][1] == counted == spans == want):
+        raise AssertionError(f"tools: test_smap launches {launches} "
+                             f"(plain {runs['plain'][1]}), the trace's "
+                             f"kernels {counted}, spans {spans}; want {want}")
+    log(f"tools: test_smap -t run_inference on {frames} frames: "
+        f"{runs['plain'][2]:.1f} s of process, {runs['traced'][2]:.1f} s "
+        f"with --profile-dir (trace of {device} device kernels, "
+        f"{os.path.getsize(path) / 1e6:.1f} MB); the same JSON; A and B "
+        f"in the trace {counted['paf_score']} and {counted['associate']}, "
+        f"one each a batch, as LAUNCHES and the annotate spans [{card}]")
+    return counted
+
+
+def traced_folded_batch(dev, tmp: str, sd, batches, card: str) -> dict:
+    """(b) One folded-fused run_batch inside trace(): 1 C, 9 D, 1 A and 1
+    B among the device kernels, each inside its annotate span; run_batch
+    ms with and without the trace, in turns."""
+    from smap_tpu_torch.config import Config
+    from smap_tpu_torch.inference import SMAPInference
+    from smap_tpu_torch.ops import kernels
+    from smap_tpu_torch.utils.profiling import trace
+
+    engine = SMAPInference(sd, Config(), device=dev, quantized="folded",
+                           fuse_stem=True, fuse_bottleneck=True)
+    frames, scales = batches[0]
+
+    def run():
+        res = engine.run_batch(frames, scales)
+        torch.cuda.synchronize()
+        return res
+
+    run()                                           # packs and warms up
+    log_dir = os.path.join(tmp, "tools_folded")
+    kernels.reset_launch_counts()
+    with trace(log_dir):
+        res = run()
+    launches = dict(kernels.LAUNCHES)
+    counted, spans, device = trace_counts(trace_file(log_dir))
+    want = dict(paf_score=1, associate=1, fused_stem=1, fused_bottleneck=9,
+                int8_conv=0)
+    if not (launches == counted == spans == want):
+        raise AssertionError(f"tools: traced folded-fused batch: LAUNCHES "
+                             f"{launches}, the trace's kernels {counted}, "
+                             f"spans {spans}; want {want}")
+    if not all(bool(torch.isfinite(t).all()) for t in res[:3]):
+        raise AssertionError("tools: traced folded-fused batch not finite")
+    ms = {"plain": [], "traced": []}
+    for name in ("plain", "traced", "traced", "plain"):
+        with trace(os.path.join(tmp, "tools_turns") if name == "traced"
+                   else None):
+            t0 = time.perf_counter()
+            run()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    log(f"tools: one folded-fused run_batch traced: C {counted['fused_stem']}"
+        f", D {counted['fused_bottleneck']}, A {counted['paf_score']}, B "
+        f"{counted['associate']} of {device} device kernels, as LAUNCHES "
+        f"and the annotate spans; run_batch {np.mean(ms['plain']):.2f} ms, "
+        f"{np.mean(ms['traced']):.2f} ms traced (host clock, synchronized, "
+        f"in turns) [{card}]")
+    return counted
+
+
+def traced_training(dev, tmp: str, card: str) -> None:
+    """(c) Trainer.fit at full width on phase 8's seeded batches under
+    deterministic algorithms, PROFILE_STEPS steps with a trace window,
+    against the untraced run from the same state, before and after it
+    (losses and the whole state bit-equal, checkpoints and logged steps
+    at the JAX cadence); ms a step of each."""
+    import dataclasses
+
+    from smap_tpu_torch.config import Config
+    from smap_tpu_torch.runtime import deterministic_algorithms
+    from smap_tpu_torch.train.engine import Trainer, TrainerConfig
+
+    cfg = Config()
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, checkpoint_period=4, nominal_devices=1))
+    rng, gen = np.random.RandomState(0), torch.Generator(dev).manual_seed(0)
+    batches = [train_batch(rng, gen, cfg, TRAIN_BATCH, dev)
+               for _ in range(PROFILE_STEPS)]
+    prof_dir = os.path.join(tmp, "tools_train_prof")
+    runs = {}
+    for name, prof in (("untraced", ""), ("traced", prof_dir),
+                       ("untraced again", "")):
+        out_dir = os.path.join(tmp, f"tools_train_{len(runs)}")
+        trainer = Trainer(cfg, TrainerConfig(
+            output_dir=out_dir, log_every=2, seed=0, profile_dir=prof, profile_first_step=PROFILE_FIRST,
+            profile_num_steps=2), device=dev)
+        state = trainer.init_state(0)
+        with deterministic_algorithms():
+            state = trainer.fit(enumerate(batches), state=state,
+                                max_steps=PROFILE_STEPS)
+        steps = trainer.ckpt.all_steps()
+        trainer.close()
+        with open(os.path.join(out_dir, "tb_dir", "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        logged = [{k: v for k, v in r.items() if k != "time"}
+                  for r in records]
+        if (steps != PROFILE_CKPTS
+                or [r["step"] for r in logged] != PROFILE_LOGGED):
+            raise AssertionError(f"tools: {name}: checkpoints {steps}, "
+                                 f"logged steps {logged}")
+        # Steps 3 and 4: between the losses read at 2 and at 4 (each read
+        # waits for the card), before the checkpoint at 4.
+        ms = (records[1]["time"] - records[0]["time"]) * 1e3 / 2
+        runs[name] = (ms, logged, {k: v.cpu() for k, v in
+                                   state.model.state_dict().items()},
+                      state.optimizer.state_dict())
+        del trainer, state
+    ref = runs["untraced"]
+    for name in ("traced", "untraced again"):
+        got = runs[name]
+        same = got[1] == ref[1] and all(
+            torch.equal(got[2][k], v) for k, v in ref[2].items()) and all(
+            torch.equal(got[3]["state"][i][k], v)
+            for i, st in ref[3]["state"].items() for k, v in st.items())
+        if not same:
+            raise AssertionError(f"tools: Trainer.fit {name} differs from "
+                                 f"untraced: losses {got[1]} vs {ref[1]}")
+    counted, spans, device = trace_counts(trace_file(prof_dir))
+    if device == 0 or any(counted.values()):
+        raise AssertionError(f"tools: the training trace holds {device} "
+                             f"device kernels, A-E {counted}")
+    log(f"tools: Trainer.fit at Config(), batch {TRAIN_BATCH}, "
+        f"deterministic, {PROFILE_STEPS} steps: traced bit-equal to "
+        f"untraced (losses at steps {PROFILE_LOGGED}, "
+        f"weights, statistics, Adam), checkpoints {PROFILE_CKPTS}; the "
+        f"trace of steps {PROFILE_FIRST + 1}-{PROFILE_FIRST + 2} holds "
+        f"{device} device kernels, none of A-E; ms a step over steps 3-4 "
+        f"(host clock between the losses read at steps 2 and 4; the "
+        f"traced run's include the trace's start and export): " + ", ".join(
+            f"{name} {r[0]:.2f}" for name, r in runs.items()) + f" [{card}]")
+
+
+def native_host_path(frame_dir: str, card: str) -> None:
+    """(d) The native library built on this machine; on a FRAME_HW frame
+    its letterbox and normalize match the numpy path within
+    tests/test_native.py's tolerances; ms a frame of each beside numpy's,
+    and of the train sample's normalize at the input size."""
+    from smap_tpu_torch.config import INPUT_SHAPE, PIXEL_STDS_BGR
+    from smap_tpu_torch.data import native
+    from smap_tpu_torch.data.image import imread
+    from smap_tpu_torch.data.preprocess import letterbox_image, normalize_image
+
+    if not native.native_available():
+        raise AssertionError("tools: the native preprocessing library did "
+                             "not build on this machine")
+    img = imread(os.path.join(frame_dir, "frame000.png"))
+    got, _ = native.letterbox_normalize_native(img)
+    want = normalize_image(letterbox_image(img)[0])
+    lsb = 2.0 / 255.0 / min(PIXEL_STDS_BGR)
+    diff = np.abs(got - want)
+    norm_err = float(np.abs(native.normalize_native(img)
+                            - normalize_image(img)).max())
+    if not (np.mean(diff < lsb) > NATIVE_LSB_SHARE
+            and diff.max() < NATIVE_LSB_MAX * lsb
+            and norm_err <= NATIVE_NORM_ATOL):
+        raise AssertionError(f"tools: native letterbox {diff.max():.3g} "
+                             f"max, {np.mean(diff < lsb):.4f} within 2 "
+                             f"levels; normalize {norm_err:.3g}")
+    boxed = letterbox_image(img)[0]
+
+    def ms(fn, n=5):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    times = {
+        "letterbox + normalize": (
+            ms(lambda: native.letterbox_normalize_native(img)),
+            ms(lambda: normalize_image(letterbox_image(img)[0]))),
+        f"normalize {FRAME_HW[0]}x{FRAME_HW[1]}": (
+            ms(lambda: native.normalize_native(img)),
+            ms(lambda: normalize_image(img))),
+        f"normalize {INPUT_SHAPE[0]}x{INPUT_SHAPE[1]} (the train sample)": (
+            ms(lambda: native.normalize_native(boxed)),
+            ms(lambda: normalize_image(boxed)))}
+    lib = os.path.relpath(native.library_path(), ROOT)
+    log(f"tools: native library built ({lib}, g++ "
+        f"{' '.join(native.CXX_FLAGS)}); letterbox within "
+        f"{diff.max() / lsb * 2:.2f} grey levels of the numpy path "
+        f"({np.mean(diff < lsb):.5f} within 2), normalize within "
+        f"{norm_err:.3g}; ms a frame native / numpy (one thread): "
+        + ", ".join(f"{k} {a:.2f} / {b:.2f}" for k, (a, b) in times.items())
+        + f" [{card}]")
+
+
+def converted_checkpoints(tmp: str, sd_path: str, sd) -> None:
+    """(e) convert_checkpoint both ways as processes: phase 9's .pth -> a
+    training checkpoint -> a .pth holding the same tensors bit for bit."""
+    ckpt_dir = os.path.join(tmp, "tools_ckpt")
+    back = os.path.join(tmp, "tools_back.pth")
+    first = run_cli("convert_checkpoint", "--smap-path", sd_path,
+                    "--output-dir", ckpt_dir)
+    second = run_cli("convert_checkpoint", "--ckpt-dir", ckpt_dir,
+                     "--to-torch", back)
+    ckpt = torch.load(os.path.join(ckpt_dir, "checkpoints", "0.pt"),
+                      map_location="cpu", weights_only=True)
+    got = torch.load(back, map_location="cpu", weights_only=True)["model"]
+    if not (ckpt["step"] == 0 and got.keys() == sd.keys() and all(
+            torch.equal(got[k], v) and torch.equal(ckpt["model"][k], v)
+            for k, v in sd.items())):
+        raise AssertionError("tools: the checkpoint round trip changed the "
+                             "weights")
+    log(f"tools: convert_checkpoint .pth -> checkpoint ({first.seconds:.1f}"
+        f" s of process) -> .pth ({second.seconds:.1f} s): {len(sd)} "
+        f"tensors bit-equal")
+
+
+def phase_tools(dev, card: str, tmp: str, sd_path: str, sd, frame_dir: str,
+                batches) -> dict:
+    """Phase 11: tracing and the tools, on what phase 9 left. Returns the
+    kernel launches the traces of (a) and (b) counted."""
+    t0 = time.perf_counter()
+    counted = traced_test_smap(tmp, sd_path, frame_dir, card)
+    for k, v in traced_folded_batch(dev, tmp, sd, batches, card).items():
+        counted[k] += v
+    traced_training(dev, tmp, card)
+    native_host_path(frame_dir, card)
+    converted_checkpoints(tmp, sd_path, sd)
+    log(f"tools: phase 11 took {time.perf_counter() - t0:.1f} s")
+    return counted
+
+
 def data_parallel_inputs(tmp: str):
     """What phase 9 leaves for phase 10, made alone: the first
     LABELED_FRAMES frames as PNG with their ``annot.json``, and the
@@ -2788,9 +3112,11 @@ def main(argv=None) -> int:
         cli_launches, cli_state = phase_entry_points(dev, card, tmp)
         dp_launches = phase_data_parallel(dev, card, tmp, *cli_state,
                                           batches)
+        trace_launches = phase_tools(dev, card, tmp, *cli_state, batches)
     for key, row in rows.items():
         row["cli_launches"] = cli_launches[key]
         row["dp_launches"] = dp_launches.get(key, 0)
+        row["trace_launches"] = trace_launches[key]
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_per_forward", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "bound_kind", "share", "library_ms")

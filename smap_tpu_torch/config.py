@@ -58,6 +58,24 @@ QUANT_MODES: Tuple[Any, ...] = (False, True, "static", "folded")
 
 
 @dataclasses.dataclass(frozen=True)
+class SkeletonConfig:
+    """The mpi15 skeleton (``smap_tpu.config.SkeletonConfig``)."""
+
+    num_joints: int = NUM_JOINTS
+    num_limbs: int = NUM_LIMBS
+    root_idx: int = ROOT_IDX
+    paf_vector: Tuple[Tuple[int, int], ...] = PAF_VECTOR
+    flip_order: Tuple[int, ...] = FLIP_ORDER
+    paf_flip_channel: Tuple[int, ...] = PAF_FLIP_CHANNEL
+    bone_lengths: Tuple[float, ...] = BONE_LENGTHS
+
+    @property
+    def num_2d_channels(self) -> int:
+        """Keypoint heatmaps + x/y PAF channels (43 for mpi15)."""
+        return self.num_joints + 2 * self.num_limbs
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     """SMAP backbone hyper-parameters (``smap_tpu.config.ModelConfig``)."""
 
@@ -163,6 +181,7 @@ class RefineNetConfig:
 class Config:
     """Top-level config bundle."""
 
+    skeleton: SkeletonConfig = SkeletonConfig()
     model: ModelConfig = ModelConfig()
     post: PostProcessConfig = PostProcessConfig()
     train: TrainConfig = TrainConfig()
@@ -170,3 +189,7 @@ class Config:
     input_shape: Tuple[int, int] = INPUT_SHAPE
     output_shape: Tuple[int, int] = OUTPUT_SHAPE
     stride: int = STRIDE
+
+
+def default_config() -> Config:
+    return Config()

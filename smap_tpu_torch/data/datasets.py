@@ -3,9 +3,10 @@ iterator (counterpart of ``smap_tpu/data/datasets.py``; numpy on the
 host, no OpenCV for PNG frames).
 
 * ``JointDataset`` reads the unified JSON (rows ``[x, y, Z, v, X, Y, Z,
-  fx, fy, cx, cy]``), augments on the host (``data.augmentation``) and
-  returns fixed-capacity joint tables; the labels are rendered on the
-  device inside the train step.
+  fx, fy, cx, cy]``), augments on the host (``data.augmentation``),
+  normalizes a train sample through the native library (``data.native``,
+  as the JAX package does) and returns fixed-capacity joint tables; the
+  labels are rendered on the device inside the train step.
 * ``train_iterator``: epoch-seeded shuffles, padded to a multiple of the
   shard count, strided per shard, indexed by iteration so that a resume
   is exact; a thread prefetches batches, and ``num_workers`` processes
@@ -28,6 +29,7 @@ import numpy as np
 from smap_tpu_torch.config import NUM_JOINTS, ROOT_IDX, Config
 from smap_tpu_torch.data.augmentation import augment_sample
 from smap_tpu_torch.data.image import imread
+from smap_tpu_torch.data.native import normalize_native
 from smap_tpu_torch.data.preprocess import normalize_image
 
 
@@ -99,7 +101,7 @@ class JointDataset:
         if n:
             cols = min(bodys.shape[-1], 11)
             table[:n, :, :cols] = bodys[:n, :, :cols]
-        return normalize_image(img), table, valids, np.float32(scale)
+        return normalize_native(img), table, valids, np.float32(scale)
 
     def get_eval_sample(self, index: int):
         """Test / generation sample: (image f32 normalized, bodys [P, 15,

@@ -1,9 +1,13 @@
-"""Weights carried across from the JAX package.
+"""Weights carried across from the JAX package, and checkpoints in the
+reference's ``.pth`` schema.
 
 Turns a JAX ``{'params', 'batch_stats'}`` tree (nested dicts of numpy
 arrays) into the port's state_dict, for SMAP and for RefineNet: the inverse
 of ``convert_smap_state_dict`` / ``convert_refinenet_state_dict`` in
-``smap_tpu/models/torch_convert.py``.
+``smap_tpu/models/torch_convert.py``. The port's state_dict is the
+reference's layout, so ``load_torch_checkpoint`` and
+``save_torch_checkpoint`` read and write a reference ``.pth`` as it is
+(``python -m smap_tpu_torch.convert_checkpoint``).
 
 * conv kernels HWIO -> OIHW; dense kernels ``[in, out]`` -> ``[out, in]``;
 * BatchNorm ``scale`` -> ``weight``; stats ``mean`` / ``var`` ->
@@ -113,6 +117,19 @@ def refinenet_state_dict(variables: Mapping[str, Any]
             ] = _tensor(arr)
         out[f"block.layer{n}.1.num_batches_tracked"] = _zero_count()
     return out
+
+
+def save_torch_checkpoint(state_dict: Mapping[str, Any], path: str) -> None:
+    """Writes ``state_dict`` (tensors or numpy arrays) as ``{"model":
+    tensors}`` on the CPU, the reference's checkpoint schema (its
+    engine.py:100-105), as ``smap_tpu.models.torch_convert.
+    save_torch_checkpoint`` does, but keeping 0-d entries 0-d
+    (``num_batches_tracked``: that function's ``np.ascontiguousarray``
+    makes them ``[1]``, which the reference's strict load refuses)."""
+    tensors = {k: (v.detach().cpu() if isinstance(v, torch.Tensor)
+                   else torch.tensor(np.asarray(v)))
+               for k, v in state_dict.items()}
+    torch.save({"model": tensors}, path)
 
 
 def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:

@@ -11,7 +11,10 @@ The wrappers take CUDA tensors only and raise on anything else: the plain
 PyTorch versions live beside their callers (``ops/paf.py``,
 ``ops/association.py``, ``ops/fused_stem.py``, ``ops/fused_block.py``,
 ``ops/int8_conv.py``), which choose by device. ``LAUNCHES`` counts the
-launches of each kernel.
+launches of each kernel. Each launch runs inside an ``annotate`` span
+named after its ``LAUNCHES`` key (``utils.profiling``), so that a trace
+reads by kernel; the card's own events carry the kernels' symbols
+(``paf_score_kernel``, ``associate_kernel``, ...).
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import torch
+
+from smap_tpu_torch.utils.profiling import annotate
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
@@ -207,7 +212,7 @@ def paf_score(pafs: torch.Tensor, xy: torch.Tensor, count: torch.Tensor,
     if out.numel() == 0:
         return out
     close_threshold = (float(H) * float(W)) ** 0.5 / 150.0
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), annotate("paf_score"):
         err = lib.paf_score_launch(
             pafs.data_ptr(), xy.data_ptr(), count.data_ptr(),
             limb_pairs.data_ptr(), out.data_ptr(), B, J, K, L, H, W,
@@ -272,7 +277,7 @@ def associate(xy: torch.Tensor, score: torch.Tensor, count: torch.Tensor,
     root_depth = torch.empty((B, K), dtype=torch.float32, device=dev)
     if bodies.numel() == 0:
         return bodies, root_depth
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), annotate("associate"):
         err = lib.associate_launch(
             xy.data_ptr(), *xy.stride()[:3], score.data_ptr(),
             *score.stride(), count.data_ptr(), table.data_ptr(),
@@ -311,7 +316,7 @@ def fused_stem(x: torch.Tensor, packed: torch.Tensor,
                       device=dev)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), annotate("fused_stem"):
         err = lib.fused_stem_launch(
             x.data_ptr(), packed.data_ptr(), bias.data_ptr(), out.data_ptr(),
             B, H, W, cin, torch.cuda.current_stream(dev).cuda_stream)
@@ -355,7 +360,7 @@ def fused_bottleneck(x: torch.Tensor, packed) -> torch.Tensor:
     out = torch.empty((B, H, W, cout), dtype=torch.bfloat16, device=dev)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), annotate("fused_bottleneck"):
         err = lib.fused_bottleneck_launch(
             x.data_ptr(), packed.weights.data_ptr(), packed.bias.data_ptr(),
             out.data_ptr(), B, H, W, cin, cout, int(packed.proj),
@@ -420,7 +425,7 @@ def int8_conv(x: torch.Tensor, packed: torch.Tensor,
     out = torch.empty((B, ho, wo, cout), dtype=out_dtype, device=dev)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), annotate("int8_conv"):
         err = lib.int8_conv_launch(
             x.data_ptr(), packed.data_ptr(), kernel_scale.data_ptr(),
             s_x.data_ptr(), bias.data_ptr(), out.data_ptr(), B, H, W, cin,

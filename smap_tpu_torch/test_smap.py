@@ -14,7 +14,8 @@ latest checkpoint of a training run (``--ckpt-dir``, the ``--output-dir``
 of ``smap_tpu_torch.train_smap``). Runs on ``--device`` (the card unless
 ``cpu`` is asked for). PNG frames need no OpenCV; JPEG does. At the end
 one JSON line on stderr gives this process's launches of each CUDA
-kernel (A and B once a batch).
+kernel (A and B once a batch). ``--profile-dir`` traces the inference
+(``utils.profiling.trace``; in a process group, one file a rank).
 
 ``--data-parallel`` splits each batch over every card of this host (one
 process). ``--distributed`` (under ``torchrun``, or with
@@ -118,6 +119,10 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
     parser.add_argument("--data-parallel", action="store_true",
                         help="split each batch over every card of this host "
                         "(batch_size must divide by their count)")
+    parser.add_argument("--profile-dir", default="",
+                        help="trace the run (host, and the card's kernels) "
+                        "into this directory as a Chrome trace, one file a "
+                        "rank (Perfetto / TensorBoard)")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default; under NCCL the rank's own "
                         "card) or cpu")
@@ -137,6 +142,7 @@ def _run(parser: argparse.ArgumentParser, args: argparse.Namespace) -> str:
                                           run_labeled_inference)
     from smap_tpu_torch.ops import kernels
     from smap_tpu_torch.parallel import mesh
+    from smap_tpu_torch.utils.profiling import trace
 
     kernels.reset_launch_counts()
     cfg = Config()
@@ -149,14 +155,15 @@ def _run(parser: argparse.ArgumentParser, args: argparse.Namespace) -> str:
         f"stage3_root2_{args.test_mode}_{args.data_mode}{suffix}.json")
 
     if args.test_mode == "run_inference":
-        run_inference(args.dataset_path, state_dict, cfg,
-                      refine_state_dict=refine_state_dict,
-                      do_flip=bool(args.do_flip), batch_size=args.batch_size,
-                      output_json=(out_json if distributed.is_main_process()
-                                   else None), device=args.device,
-                      adaptive_capacities=parse_ladder(
-                          args.adaptive_capacities),
-                      data_parallel=args.data_parallel)
+        with trace(args.profile_dir):
+            run_inference(
+                args.dataset_path, state_dict, cfg,
+                refine_state_dict=refine_state_dict,
+                do_flip=bool(args.do_flip), batch_size=args.batch_size,
+                output_json=(out_json if distributed.is_main_process()
+                             else None), device=args.device,
+                adaptive_capacities=parse_ladder(args.adaptive_capacities),
+                data_parallel=args.data_parallel)
     else:
         if not args.test_json:
             parser.error(f"-t {args.test_mode} needs --test-json and "
@@ -170,11 +177,13 @@ def _run(parser: argparse.ArgumentParser, args: argparse.Namespace) -> str:
         engine = SMAPInference(state_dict, cfg, refine_state_dict,
                                bool(args.do_flip), device=args.device,
                                devices=devices)
-        result = run_labeled_inference(
-            dataset, engine, mode=args.test_mode, batch_size=args.batch_size,
-            shard=distributed.process_index(),
-            num_shards=distributed.process_count(),
-            gather=distributed.process_count() > 1)
+        with trace(args.profile_dir):
+            result = run_labeled_inference(
+                dataset, engine, mode=args.test_mode,
+                batch_size=args.batch_size,
+                shard=distributed.process_index(),
+                num_shards=distributed.process_count(),
+                gather=distributed.process_count() > 1)
         if distributed.is_main_process():
             with open(out_json, "w") as f:
                 json.dump(result, f)

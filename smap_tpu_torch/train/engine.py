@@ -3,11 +3,13 @@
 
 ``Trainer.fit`` runs one optimizer step per batch of an iterator of
 ``(iteration, TrainBatch)`` pairs, logs the losses every ``log_every``
-steps (a log line and a ``metrics.jsonl`` record) and checkpoints every
-``checkpoint_period`` steps (rescaled as the schedule is) and at
-``max_iter``. A checkpoint holds the model's state_dict, the optimizer's
-state, the schedule's position and the step, written with ``torch.save``;
-a restored state continues at the exact iteration.
+steps (a log line and a ``metrics.jsonl`` record; the only host read of
+the losses) and checkpoints every ``checkpoint_period`` steps (rescaled
+as the schedule is) and at ``max_iter``; ``profile_dir`` traces a window
+of steps (``utils.profiling.StepWindowProfiler``). A checkpoint holds the
+model's state_dict, the optimizer's state, the schedule's position and
+the step, written with ``torch.save``; a restored state continues at the
+exact iteration.
 
 In a process group (``parallel.distributed``) each rank trains on its
 share of the global batch (``train.step``): the device count that scales
@@ -36,6 +38,7 @@ from smap_tpu_torch.train.step import (TrainBatch, TrainState,
                                        create_train_state, train_step,
                                        training_model)
 from smap_tpu_torch.utils.metrics import MetricWriter
+from smap_tpu_torch.utils.profiling import StepWindowProfiler
 
 _FORMAT = "%(asctime)s %(name)s %(levelname)s %(message)s"
 
@@ -127,6 +130,11 @@ class TrainerConfig:
     # > 1: each batch is split into this many microbatches whose
     # gradients are averaged into one optimizer step (train.step.train_step).
     grad_accum_steps: int = 1
+    # When set, trace the steps profile_first_step + 1 .. profile_first_step
+    # + profile_num_steps into this directory (utils.profiling).
+    profile_dir: str = ""
+    profile_first_step: int = 10
+    profile_num_steps: int = 5
 
 
 class Trainer:
@@ -167,9 +175,8 @@ class Trainer:
             state: Optional[TrainState] = None, resume: bool = False,
             max_steps: Optional[int] = None) -> TrainState:
         """Trains on ``(iteration, batch)`` pairs until ``max_iter``
-        (``max_steps`` when given) or the iterator's end. With one step
-        per batch, the JAX loop's tail window is always empty: an iterator
-        that ends before ``max_iter`` leaves no checkpoint beyond the last
+        (``max_steps`` when given) or the iterator's end. An iterator that
+        ends before ``max_iter`` leaves no checkpoint beyond the last
         periodic one."""
         if state is None:
             state = self.init_state(self.tc.seed)
@@ -178,30 +185,38 @@ class Trainer:
             self.logger.info("resumed at iteration %d", state.step)
         max_iter = max_steps or self.scaled_max_iter()
         ckpt_period = self.scaled_checkpoint_period()
+        profiler = StepWindowProfiler(self.tc.profile_dir,
+                                      self.tc.profile_first_step,
+                                      self.tc.profile_num_steps)
         t0 = time.time()
         last_logged = None
-        for iteration, batch in batch_iter:
-            it = iteration + 1
-            state, losses = train_step(state, batch, cfg=self.cfg,
-                                       accum_steps=self.tc.grad_accum_steps)
-            if self.is_main and (it % self.tc.log_every == 0
-                                 or it == max_iter):
-                values = {k: float(v) for k, v in losses.items()}
-                self.metrics.write_scalars(it, values)
-                dt = time.time() - t0
-                t0 = time.time()
-                done = it - last_logged if last_logged else it
-                last_logged = it
-                eta_s = int(dt / max(done, 1) * (max_iter - it))
-                self.logger.info(
-                    "Iter:%d, %s, ETA %dh%02dm", it,
-                    ", ".join(f"{k}: {v:.3f}" for k, v in values.items()),
-                    eta_s // 3600, eta_s % 3600 // 60)
-            if self.is_main and (it % ckpt_period == 0 or it == max_iter):
-                self.ckpt.save(it, state)
-                self.logger.info("checkpoint saved at iteration %d", it)
-            if it >= max_iter:
-                break
+        try:
+            for iteration, batch in batch_iter:
+                it = iteration + 1
+                state, losses = train_step(
+                    state, batch, cfg=self.cfg,
+                    accum_steps=self.tc.grad_accum_steps)
+                profiler.step(it)
+                if self.is_main and (it % self.tc.log_every == 0
+                                     or it == max_iter):
+                    values = {k: float(v) for k, v in losses.items()}
+                    self.metrics.write_scalars(it, values)
+                    dt = time.time() - t0
+                    t0 = time.time()
+                    done = it - last_logged if last_logged else it
+                    last_logged = it
+                    eta_s = int(dt / max(done, 1) * (max_iter - it))
+                    self.logger.info(
+                        "Iter:%d, %s, ETA %dh%02dm", it,
+                        ", ".join(f"{k}: {v:.3f}" for k, v in values.items()),
+                        eta_s // 3600, eta_s % 3600 // 60)
+                if self.is_main and (it % ckpt_period == 0 or it == max_iter):
+                    self.ckpt.save(it, state)
+                    self.logger.info("checkpoint saved at iteration %d", it)
+                if it >= max_iter:
+                    break
+        finally:
+            profiler.close()
         return state
 
     def close(self) -> None:

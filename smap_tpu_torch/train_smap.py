@@ -6,7 +6,8 @@ frames need no OpenCV, JPEG does), and trains on one device with
 ``train.engine.Trainer``: loss lines every ``--log-every`` steps (also in
 ``<output-dir>/tb_dir/metrics.jsonl``), checkpoints in
 ``<output-dir>/checkpoints/<step>.pt``. ``--resume`` continues from the
-latest checkpoint at its exact iteration.
+latest checkpoint at its exact iteration. ``--profile-dir`` writes a
+trace of steps 11-15 (``utils.profiling``).
 
 Data parallel, one process a card: under ``torchrun`` (``--distributed``
 reads its environment) or with ``--coordinator host:port
@@ -18,7 +19,8 @@ rate and the schedule; rank 0 writes the checkpoints and logs.
 Usage:
   python -m smap_tpu_torch.train_smap --muco-json muco.json \\
       --muco-root imgs [--coco-json ... --coco-root ...] [--resume] \\
-      [--max-steps N] [--batch-per-device B] [--num-workers W]
+      [--max-steps N] [--batch-per-device B] [--num-workers W] \\
+      [--profile-dir prof/]
   torchrun --nproc-per-node 8 -m smap_tpu_torch.train_smap --distributed \\
       --muco-json muco.json --muco-root imgs
 """
@@ -56,6 +58,10 @@ def main(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--grad-accum-steps", type=int, default=1,
                         help="microbatches a step (the batch must divide "
                         "by it)")
+    parser.add_argument("--profile-dir", default="",
+                        help="trace steps 11-15 (host, and the card's "
+                        "kernels) into this directory as a Chrome trace "
+                        "(Perfetto / TensorBoard)")
     parser.add_argument("--log-every", type=int, default=20,
                         help="log the losses every N steps")
     parser.add_argument("--deterministic", action="store_true",
@@ -90,7 +96,8 @@ def main(argv: Optional[Sequence[str]] = None):
     try:
         trainer = Trainer(cfg, TrainerConfig(
             output_dir=args.output_dir, log_every=args.log_every,
-            seed=args.seed, grad_accum_steps=args.grad_accum_steps),
+            seed=args.seed, grad_accum_steps=args.grad_accum_steps,
+            profile_dir=args.profile_dir),
             device=args.device)
         try:
             batch = args.batch_per_device or cfg.train.img_per_device

@@ -6,6 +6,7 @@ and the RefineNet CLIs run as ``python -m`` processes."""
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -449,7 +450,8 @@ def test_test_smap_distributed_two_ranks(tmp_path, small_cli,
                                          people_in_every_frame):
     """test_smap -t generate_result --distributed in two gloo ranks:
     each rank its contiguous shard, the results gathered, and rank 0 alone
-    writes run_labeled_inference's JSON over the whole set."""
+    writes run_labeled_inference's JSON over the whole set; with
+    --profile-dir, each rank writes its own trace."""
     from smap_tpu_torch.data.datasets import JointDataset, load_annotations
     from smap_tpu_torch.inference import SMAPInference, run_labeled_inference
     from smap_tpu_torch.parallel.distributed import spawn_ranks
@@ -460,11 +462,16 @@ def test_test_smap_distributed_two_ranks(tmp_path, small_cli,
     torch.save(small_cli, pth)
     argvs = [["-t", "generate_result", "-p", str(pth), "--test-json",
               str(annot), "--test-root", src, "--batch_size", "2",
-              "--output-dir", str(tmp_path / f"res{r}"), "--distributed"]
+              "--output-dir", str(tmp_path / f"res{r}"), "--distributed",
+              "--profile-dir", str(tmp_path / "prof")]
              for r in range(2)]
     outs = spawn_ranks(cli_rank, 2, "test_smap", argvs, SMALL,
                        _two_people(), timeout_s=300)
     assert os.path.exists(outs[0]) and not os.path.exists(outs[1])
+    traces = _trace_files(tmp_path / "prof")
+    assert len(traces) == 2
+    assert sorted(re.search(r"_(rank\d)\.\d+\.pt\.trace\.json$",
+                            t).group(1) for t in traces) == ["rank0", "rank1"]
     dataset = JointDataset(load_annotations(str(annot)), {"MUPOTS": src},
                            SMALL, "test")
     want = run_labeled_inference(
@@ -571,3 +578,102 @@ def test_refinenet_clis(tmp_path):
             f"epoch {epoch}: mean {errors[epoch]:.4f} cm")
     best = min(errors, key=errors.get)
     assert lines[-1] == f"best epoch: {best} ({errors[best]:.4f} cm)"
+
+
+def _trace_files(log_dir):
+    return [f for f in os.listdir(log_dir) if f.endswith(".pt.trace.json")]
+
+
+def test_train_smap_profile_dir(tmp_path, small_cli):
+    """--profile-dir: one trace of steps 11-12 (the run ends inside the
+    window), and the same losses, checkpoint and weights as the run
+    without it."""
+    from smap_tpu_torch import train_smap
+
+    data = _train_set(tmp_path)
+    flags = ["--muco-json", data["MUCO"][0], "--muco-root", data["MUCO"][1],
+             "--batch-per-device", "2", "--log-every", "2", "--seed", "1",
+             "--max-steps", "12", "--device", "cpu"]
+    prof = tmp_path / "prof"
+    traced = train_smap.main([*flags, "--output-dir", str(tmp_path / "a"),
+                              "--profile-dir", str(prof)])
+    plain = train_smap.main([*flags, "--output-dir", str(tmp_path / "b")])
+    assert traced.step == plain.step == 12
+    got, want = _losses(tmp_path / "a"), _losses(tmp_path / "b")
+    assert [r["step"] for r in got] == list(range(2, 13, 2))
+    assert got == want
+    for a, b in zip(traced.model.state_dict().values(),
+                    plain.model.state_dict().values()):
+        assert torch.equal(a, b)
+    assert os.listdir(tmp_path / "a" / "checkpoints") == ["12.pt"]
+    assert len(_trace_files(prof)) == 1
+
+
+def test_test_smap_profile_dir(tmp_path, small_cli, people_in_every_frame):
+    """--profile-dir writes one Chrome trace and the same result JSON as
+    the run without it."""
+    from smap_tpu_torch import test_smap
+
+    src = _frames_dir(tmp_path / "frames", seed=1)
+    pth = tmp_path / "smap.pth"
+    torch.save(small_cli, pth)
+    flags = ["-p", str(pth), "--dataset_path", src, "--batch_size", "2",
+             "--device", "cpu"]
+    plain = test_smap.main([*flags, "--output-dir", str(tmp_path / "a")])
+    prof = tmp_path / "prof"
+    traced = test_smap.main([*flags, "--output-dir", str(tmp_path / "b"),
+                             "--profile-dir", str(prof)])
+    with open(plain) as f, open(traced) as g:
+        assert json.load(f) == json.load(g)
+    files = _trace_files(prof)
+    assert len(files) == 1
+    with open(prof / files[0]) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "aten::conv2d" in names
+
+
+def test_convert_checkpoint_and_visualize_as_modules(tmp_path, monkeypatch,
+                                                     small_cli):
+    """convert_checkpoint exports a training checkpoint as a process (the
+    weights bit for bit) and refuses a directory without one;
+    visualize draws a result JSON."""
+    from smap_tpu_torch import convert_checkpoint
+
+    monkeypatch.setattr(convert_checkpoint, "Config", lambda: SMALL)
+    pth = tmp_path / "smap.pth"
+    torch.save({"model": small_cli}, pth)
+    run = tmp_path / "run"
+    convert_checkpoint.main(["--smap-path", str(pth), "--output-dir",
+                             str(run)])
+    out = tmp_path / "back.pth"
+    proc = _run_module("smap_tpu_torch.convert_checkpoint", "--ckpt-dir",
+                       str(run), "--to-torch", str(out))
+    assert proc.returncode == 0, proc.stderr
+    back = torch.load(out, weights_only=True)["model"]
+    assert back.keys() == small_cli.keys()
+    assert all(torch.equal(back[k], v) for k, v in small_cli.items())
+    proc = _run_module("smap_tpu_torch.convert_checkpoint", "--ckpt-dir",
+                       str(tmp_path / "none"), "--to-torch", str(out))
+    assert proc.returncode != 0 and "no checkpoint found" in proc.stderr
+
+    pytest.importorskip("matplotlib")
+    src = _frames_dir(tmp_path / "frames", n=1, seed=3)
+    pose = np.ones((1, 15, 4))
+    pose[..., :3] = np.random.RandomState(0).randn(1, 15, 3) * 20
+    result = tmp_path / "r.json"
+    result.write_text(json.dumps({"3d_pairs": [
+        {"image_path": "f0.png", "pred_3d": pose.tolist()}]}))
+    proc = _run_module("smap_tpu_torch.visualize", "--result-json",
+                       str(result), "--image-root", src, "--out-dir",
+                       str(tmp_path / "vis"))
+    assert proc.returncode == 0, proc.stderr
+    assert os.listdir(tmp_path / "vis") == ["vis_00000.png"]
+
+
+@pytest.mark.parametrize("module,flag", [("convert_checkpoint", "--to-torch"),
+                                         ("visualize", "--result-json")])
+def test_tool_entry_points_run_as_modules(module, flag):
+    out = _run_module(f"smap_tpu_torch.{module}", "--help")
+    assert out.returncode == 0, out.stderr
+    assert f"python -m smap_tpu_torch.{module}" in out.stdout
+    assert flag in out.stdout

@@ -71,8 +71,8 @@ def test_config_mirrors_jax_config():
                  "INPUT_SHAPE", "STRIDE", "OUTPUT_SHAPE", "PIXEL_MEANS_BGR",
                  "PIXEL_STDS_BGR"):
         assert getattr(tc, name) == getattr(jc, name), name
-    for cls in ("ModelConfig", "PostProcessConfig", "TrainConfig",
-                "RefineNetConfig"):
+    for cls in ("SkeletonConfig", "ModelConfig", "PostProcessConfig",
+                "TrainConfig", "RefineNetConfig"):
         port = dataclasses.asdict(getattr(tc, cls)())
         ref = dataclasses.asdict(getattr(jc, cls)())
         assert port == {k: ref[k] for k in port}, cls
@@ -86,3 +86,7 @@ def test_config_mirrors_jax_config():
     for f in ("input_shape", "output_shape", "stride"):
         assert getattr(port, f) == getattr(ref, f), f
     assert port.train == tc.TrainConfig()
+    assert dataclasses.asdict(port.skeleton) == dataclasses.asdict(
+        ref.skeleton)
+    assert port.skeleton.num_2d_channels == ref.skeleton.num_2d_channels == 43
+    assert tc.default_config() == port

@@ -17,6 +17,7 @@ from smap_tpu.evaluation.register import register_pred as jregister
 
 from smap_tpu_torch.config import PIXEL_STDS_BGR, Config, TrainConfig
 from smap_tpu_torch.data import datasets as ds
+from smap_tpu_torch.data import native as tnative
 from smap_tpu_torch.evaluation.register import register_pred
 from test_torch_image import WARP_MAX_DIFF, WARP_MAX_SHARE
 
@@ -80,9 +81,11 @@ def assert_images_close(got, want, exact):
 
 @pytest.fixture
 def jax_numpy_normalize(monkeypatch):
-    """The JAX train sample normalizes through its ctypes library when it
-    builds; its numpy fallback is the port's normalize_image."""
+    """Both packages' train samples normalize through their ctypes library
+    when it builds; here both take their numpy fallback, the same
+    normalize_image (the libraries are held to each other below)."""
     monkeypatch.setattr(jnative, "_load", lambda: None)
+    monkeypatch.setattr(tnative, "_load", lambda: None)
 
 
 @pytest.mark.parametrize("with_aug,composed", [(False, False), (True, False),
@@ -100,14 +103,17 @@ def test_get_train_sample(annotated, jax_numpy_normalize, with_aug,
 
 
 def test_train_sample_normalizes_as_the_native_library(annotated):
-    """Against the JAX library's one-pass normalize, where it builds: a
-    few float32 ulps (measured 4.8e-7 at most)."""
-    if not jnative.native_available():
-        pytest.skip("the JAX package's native library did not build")
+    """Both train samples through their native libraries, where both
+    build: the same source and flags on the same host, so the same bits
+    (the port normalized in numpy before, 4.8e-7 apart)."""
+    if not (jnative.native_available() and tnative.native_available()):
+        pytest.skip("a native preprocessing library did not build")
     port, jax_ds = _pair(annotated, "train", False)
-    got = port.get_train_sample(0, np.random.RandomState(0))[0]
-    want = jax_ds.get_train_sample(0, np.random.RandomState(0))[0]
-    np.testing.assert_allclose(got, want, rtol=0, atol=4e-6)
+    for i in range(len(port)):
+        got = port.get_train_sample(i, np.random.RandomState(i))[0]
+        want = jax_ds.get_train_sample(i, np.random.RandomState(i))[0]
+        assert got.dtype == want.dtype == np.float32
+        assert np.array_equal(got, want)
 
 
 @pytest.mark.parametrize("stage", ["test", "generation"])
@@ -143,10 +149,11 @@ def _batches(it):
     return [(i, tuple(np.asarray(x) for x in b)) for i, b in it]
 
 
-def test_train_iterator_matches_jax(annotated, jax_numpy_normalize):
+def test_train_iterator_matches_jax(annotated):
     """Across an epoch boundary and resumed mid-way; the port's batches at
     0 and 2 worker processes are equal bit for bit, and JAX's within the
-    rotation's remainder."""
+    rotation's remainder. Every sample normalizes through the native
+    libraries, in the workers too (a patch here would not reach them)."""
     port, jax_ds = _pair(annotated, "train", True)
     want = _batches(jds.train_iterator(jax_ds, 2, 5, start_iter=1, seed=3))
     serial = _batches(ds.train_iterator(port, 2, 5, start_iter=1, seed=3))

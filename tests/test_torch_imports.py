@@ -1,6 +1,7 @@
 """The port imports no JAX: every module of the serving, training,
-data-parallel and evaluation slices and every entry point loads in a fresh interpreter without jax,
-flax, the JAX package, OpenCV or triton."""
+data-parallel and evaluation slices, the tools and every entry point loads
+in a fresh interpreter without jax, flax, the JAX package, OpenCV, triton
+or matplotlib (the viewer imports it when it draws)."""
 
 import os
 import subprocess
@@ -57,6 +58,14 @@ SLICE_MODULES = (
     "smap_tpu_torch.test_refinenet",
     "smap_tpu_torch.eval_mupots",
     "smap_tpu_torch.eval_panoptic",
+    "smap_tpu_torch.data.native",
+    "smap_tpu_torch.data.coco_convert",
+    "smap_tpu_torch.utils.profiling",
+    "smap_tpu_torch.utils.timer",
+    "smap_tpu_torch.utils.align",
+    "smap_tpu_torch.utils.visualize",
+    "smap_tpu_torch.convert_checkpoint",
+    "smap_tpu_torch.visualize",
 )
 
 
@@ -66,7 +75,8 @@ def test_port_imports_no_jax():
         f"for m in {SLICE_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'smap_tpu', 'cv2', 'triton'))\n"
+        "             ('jax', 'jaxlib', 'flax', 'smap_tpu', 'cv2', 'triton',\n"
+        "              'matplotlib'))\n"
         "assert not bad, bad\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -93,9 +93,10 @@ def _metrics(out_dir):
         return [json.loads(line) for line in f]
 
 
-def _fit(cfg, out_dir, batches, **kw):
-    tc = TrainerConfig(output_dir=str(out_dir), log_every=1, seed=3,
-                       grad_accum_steps=kw.pop("accum", 1))
+def _fit(cfg, out_dir, batches, tc_kw=(), **kw):
+    tc = TrainerConfig(**{**dict(output_dir=str(out_dir), log_every=1,
+                                 seed=3, grad_accum_steps=kw.pop("accum", 1)),
+                          **dict(tc_kw)})
     trainer = Trainer(cfg, tc, device="cpu")
     try:
         state = trainer.fit(iter(batches), **kw)
@@ -165,6 +166,61 @@ def test_fit_with_accumulation_is_train_step_with_accumulation(tmp_path):
             accum_steps=2)
 
 
+def _cadence_cfg():
+    return dataclasses.replace(_cfg(), train=dataclasses.replace(
+        _cfg().train, checkpoint_period=4, max_iter=100))
+
+
+def test_fit_follows_the_jax_cadence(tmp_path):
+    """log_every 2, checkpoint period 4 (the JAX package's expectations,
+    tests/test_engine.py, at one step an execution): max_steps=5
+    checkpoints at 4 and 5 and logs at 2, 4 and 5; an iterator of 3
+    before max_iter stops at step 3 with no checkpoint beyond the
+    periodic ones."""
+    cfg = _cadence_cfg()
+    tc = dict(log_every=2)
+    state, steps = _fit(cfg, tmp_path / "a", _batches(cfg, 5), tc,
+                        max_steps=5)
+    assert state.step == 5 and steps == [4, 5]
+    assert [r["step"] for r in _metrics(tmp_path / "a")] == [2, 4, 5]
+    state, steps = _fit(cfg, tmp_path / "b", _batches(cfg, 3), tc,
+                        max_steps=100)
+    assert state.step == 3 and steps == []
+    assert [r["step"] for r in _metrics(tmp_path / "b")] == [2]
+
+
+def test_fit_with_a_trace_window_equals_untraced(tmp_path):
+    """A trace of steps 3-4 changes no result: the same model, optimizer,
+    schedule and losses, bit for bit, as the untraced run; the window
+    writes one Chrome trace."""
+    cfg = _cadence_cfg()
+    plain, _ = _fit(cfg, tmp_path / "plain", _batches(cfg, 5), max_steps=5)
+    prof = str(tmp_path / "prof")
+    traced, steps = _fit(cfg, tmp_path / "traced", _batches(cfg, 5),
+                         dict(profile_dir=prof, profile_first_step=2,
+                              profile_num_steps=2), max_steps=5)
+    _assert_same_state(traced, plain)
+    assert steps == [4, 5]
+    keys = ("step", "total_loss", "loss_2d", "loss_bone", "loss_root")
+    assert [[r[k] for k in keys] for r in _metrics(tmp_path / "traced")] \
+        == [[r[k] for k in keys] for r in _metrics(tmp_path / "plain")]
+    assert len([f for f in os.listdir(prof)
+                if f.endswith(".pt.trace.json")]) == 1
+
+
+def test_fit_writes_a_trace_cut_short(tmp_path):
+    """Training that ends inside the trace window still writes the trace
+    (fit closes the window)."""
+    cfg = _cadence_cfg()
+    prof = str(tmp_path / "prof")
+    state, _ = _fit(cfg, tmp_path / "out", _batches(cfg, 3),
+                    dict(profile_dir=prof, profile_first_step=1,
+                         profile_num_steps=5), max_steps=3)
+    assert state.step == 3
+    assert len([f for f in os.listdir(prof)
+                if f.endswith(".pt.trace.json")]) == 1
+
+
 def test_checkpoint_manager_keeps_the_newest(tmp_path):
     cfg = _cfg()
     trainer = Trainer(cfg, TrainerConfig(output_dir=str(tmp_path)),
@@ -189,4 +245,9 @@ def test_trainer_defaults_to_the_card():
         pytest.skip("a card is present: the default device works")
     with pytest.raises(RuntimeError, match="cuda"):
         Trainer(_cfg(), TrainerConfig(output_dir="unused"))
-    assert dataclasses.asdict(TrainerConfig())["grad_accum_steps"] == 1
+    defaults = dataclasses.asdict(TrainerConfig())
+    assert defaults["grad_accum_steps"] == 1
+    # The JAX package's defaults.
+    assert {k: defaults[k] for k in (
+        "profile_dir", "profile_first_step", "profile_num_steps")} == dict(
+            profile_dir="", profile_first_step=10, profile_num_steps=5)
