@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's serving, training, data-parallel and
-evaluation paths, its traces and its tools once on a CUDA card.
+evaluation paths, its traces, its tools and its JPEG path once on a CUDA
+card.
 
     python3 chip_smoke.py          # from the repository root, one card
     python3 chip_smoke.py --data-parallel-only   # build and phase 10 alone
@@ -8,7 +9,8 @@ evaluation paths, its traces and its tools once on a CUDA card.
 Phases (each prints what it measured; any failure raises and the script
 exits non-zero with no result line):
 
-1. build: compile ``smap_tpu_torch/csrc/*.cu`` with nvcc for sm_90a.
+1. build: compile ``smap_tpu_torch/csrc/*.cu`` with nvcc for sm_90a and,
+   beside it, the native host libraries (``csrc/*.cc``) with g++.
 2. kernels: kernel A (PAF scoring, on channels-last maps as the decode
    gives them) within 1e-5 of its plain version, and kernel B (the whole
    association, one launch) bit-equal to its plain version, on the golden
@@ -75,7 +77,8 @@ exits non-zero with no result line):
 9. entry points, each run as ``python -m smap_tpu_torch.<cli>`` on PNG
    frames of 1080x1920 that this script writes with its own encoder (no
    OpenCV): ``data.image.imread`` reads them back equal (ms a frame, and
-   the decode rate of rows filtered Sub, Average and Paeth), letterbox
+   the decode rate of rows filtered Sub, Average and Paeth, unfiltered by
+   the native library), letterbox
    and I420 ms a frame; ``serve`` over 32 frames at ``Config()``, batch
    16, with perturbed weights from a ``.pth``, in the default (A, B),
    ``--folded --fuse-stem --fuse-bottleneck`` (C, D) and ``--int8-static``
@@ -125,10 +128,27 @@ exits non-zero with no result line):
    path, ms a frame of each; (e) ``convert_checkpoint`` both ways as
    processes: phase 9's ``.pth`` -> a training checkpoint -> a ``.pth``
    with the same tensors bit for bit.
+12. JPEG and the native image path (no OpenCV on the card's machine): (a)
+   the host libraries of phase 1 loaded (a numpy fallback fails); (b)
+   every fixture of ``tests/torch_jpeg/`` decoded by ``data.image.imread``
+   to the shape and sha256 that cv2 gave where the fixtures were written
+   (``manifest.json``; None where cv2 gave None), ms a 1080x1920 frame;
+   (c) on a 1080x1920 frame, the native ``resize_linear`` (letterbox scale,
+   0.5), ``warp_affine`` (linear and cubic, on the rotation's canvas and a
+   crop) and PNG unfiltering (Average, Paeth) bit-equal to their numpy
+   versions, ms of each beside numpy's; (d) ``serve`` over 32 copies of
+   the 1080x1920 fixtures at ``Config()``, batch 16, default (A, B) and
+   ``--folded --fuse-stem --fuse-bottleneck`` (C, D): its JSON lines equal
+   ``run_batch`` on the same decoded frames, its frames/s beside phase 9's
+   on PNG, its own launches; (e) ``test_smap -t generate_result`` on 8
+   labeled JPEG frames equal to ``run_labeled_inference``; (f)
+   ``train_smap --deterministic`` at full width, batch 8, 2 steps on JPEG
+   frames, the losses of ``Trainer.fit``; ``train_iterator``'s samples/s
+   at 0 and 4 workers beside phase 9's.
 
 The last lines are the kernels' JSON summary (per kernel: times, launches
 in the main path and per forward or batch, launches in the serve CLI's
-three runs (``cli_launches``), in phase 10's (b) and (c)
+runs of phases 9 and 12 (``cli_launches``), in phase 10's (b) and (c)
 (``dp_launches``) and in phase 11's traces of (a) and (b)
 (``trace_launches``: the trace's device kernels), the least time the card
 could take at its published peaks, ``bound_ms``, with what bounds it and
@@ -1777,10 +1797,10 @@ def phase_training(dev, card: str) -> None:
         raise AssertionError("the training path launched a serving kernel")
 
 
-def png_bytes(img: np.ndarray, filter_type: int = 2) -> bytes:
-    """A BGR uint8 frame as an RGB PNG with one filter type on every row
-    (1 Sub, 2 Up, 3 Average, 4 Paeth, predicted from the frame itself),
-    zlib level 1: this script's own writer, with no OpenCV."""
+def filtered_rows(img: np.ndarray, filter_type: int) -> np.ndarray:
+    """A BGR uint8 frame's RGB scanlines as PNG filters them, one filter
+    type on every row (1 Sub, 2 Up, 3 Average, 4 Paeth, predicted from the
+    frame itself): uint8 ``[h, 1 + 3 w]``, each row led by its type."""
     h, w, _ = img.shape
     x = img[..., ::-1].reshape(h, -1).astype(np.int32)
     up = np.vstack([np.zeros((1, x.shape[1]), np.int32), x[:-1]])
@@ -1797,8 +1817,16 @@ def png_bytes(img: np.ndarray, filter_type: int = 2) -> bytes:
         pc = np.abs(left + up - 2 * upleft)
         pred = np.where((pa <= pb) & (pa <= pc), left,
                         np.where(pb <= pc, up, upleft))
-    rows = np.hstack([np.full((h, 1), filter_type, np.int32),
+    return np.hstack([np.full((h, 1), filter_type, np.int32),
                       (x - pred) & 255]).astype(np.uint8)
+
+
+def png_bytes(img: np.ndarray, filter_type: int = 2) -> bytes:
+    """A BGR uint8 frame as an RGB PNG with one filter type on every row
+    (``filtered_rows``), zlib level 1: this script's own writer, with no
+    OpenCV."""
+    h, w, _ = img.shape
+    rows = filtered_rows(img, filter_type)
 
     def chunk(kind: bytes, body: bytes) -> bytes:
         return (struct.pack(">I", len(body)) + kind + body
@@ -1917,10 +1945,13 @@ def host_pipeline(frames, frame_dir: str, card: str):
 
 
 def serve_cli_modes(dev, card: str, sd_path: str, sd, frame_dir: str,
-                    paths, frames) -> dict:
-    """The serve CLI in its three modes against run_batch on the same I420
-    frames; the CLI's own frames/s and kernel launches. Returns the
-    launches summed over the modes."""
+                    paths, frames, only=None, fmt: str = "PNG",
+                    before=None):
+    """The serve CLI in its three modes (or those named in ``only``) on
+    the ``fmt`` frames of ``frame_dir`` against run_batch on the same I420
+    frames (``frames``: the frames decoded); the CLI's own frames/s (beside
+    ``before``'s, by mode) and kernel launches. Returns (the launches
+    summed over the modes, frames/s by mode)."""
     from smap_tpu_torch.config import Config
     from smap_tpu_torch.inference import SMAPInference
     from smap_tpu_torch.serve import wire_frame
@@ -1946,8 +1977,10 @@ def serve_cli_modes(dev, card: str, sd_path: str, sd, frame_dir: str,
                         {"fused_stem": 0, "fused_bottleneck": 0,
                          "int8_conv": 206 * n_batches}),
     }
-    total = {}
+    total, rates = {}, {}
     for name, (flags, kw, want_launches) in modes.items():
+        if only is not None and name not in only:
+            continue
         out_path = os.path.join(frame_dir, f"serve_{name}.jsonl")
         out = run_cli("serve", "--source", frame_dir, "-p", sd_path,
                       "--out", out_path, "--batch_size", str(BATCH), *flags)
@@ -1980,19 +2013,24 @@ def serve_cli_modes(dev, card: str, sd_path: str, sd, frame_dir: str,
         err = same_pairs(lines, json.loads(json.dumps(want)),
                          f"serve {name}")
         people = sum(len(p["pred_3d"]) for p in lines)
-        log(f"entry points: serve {name}: {summary['frames']} frames "
-            f"{summary['frames_per_s']:.2f} frames/s end to end (PNG "
-            f"decode, letterbox, I420, serving, JSONL; {out.seconds:.1f} s "
-            f"of process), run_batch on its I420 frames {rate:.1f} img/s; "
-            f"{len(lines)} lines equal to run_batch's (max abs err "
-            f"{err:.3g}, {people} people); launches {launches} [{card}]")
+        rates[name] = summary["frames_per_s"]
+        was = (f" (PNG: {before[name]:.2f})" if before and name in before
+               else "")
+        log(f"{'entry points' if fmt == 'PNG' else 'jpeg'}: serve {name}: "
+            f"{summary['frames']} frames {summary['frames_per_s']:.2f} "
+            f"frames/s{was} end to end ({fmt} decode, letterbox, I420, "
+            f"serving, JSONL; {out.seconds:.1f} s of process), run_batch on "
+            f"its I420 frames {rate:.1f} img/s; {len(lines)} lines equal to "
+            f"run_batch's (max abs err {err:.3g}, {people} people); launches "
+            f"{launches} [{card}]")
         del engine
-    return total
+    return total, rates
 
 
-def labeled_annotations(rng: np.random.RandomState, frame_dir: str) -> str:
-    """Writes ``annot.json`` beside the first LABELED_FRAMES frames, one
-    crafted person each; returns its path."""
+def labeled_annotations(rng: np.random.RandomState, frame_dir: str,
+                        ext: str = "png") -> str:
+    """Writes ``annot.json`` beside the first LABELED_FRAMES frames
+    (``frameNNN.<ext>``), one crafted person each; returns its path."""
     h, w = FRAME_HW
     records = []
     for i in range(LABELED_FRAMES):
@@ -2004,7 +2042,7 @@ def labeled_annotations(rng: np.random.RandomState, frame_dir: str) -> str:
         bodys[..., 4:7] = rng.randn(1, 15, 3) * 30
         bodys[..., 7:] = [1500.0, 1500.0, w / 2, h / 2]
         records.append({"dataset": "MUPOTS",
-                        "img_paths": f"frame{i:03d}.png", "img_height": h,
+                        "img_paths": f"frame{i:03d}.{ext}", "img_height": h,
                         "img_width": w, "isValidation": 1,
                         "bodys": bodys.tolist()})
     annot = os.path.join(frame_dir, "annot.json")
@@ -2013,42 +2051,53 @@ def labeled_annotations(rng: np.random.RandomState, frame_dir: str) -> str:
     return annot
 
 
+def generate_cli(engine, sd_path: str, frame_dir: str, annot: str,
+                 mode: str, data_mode: str, label: str):
+    """``test_smap -t <mode> -d <data_mode>`` as a process on ``annot``'s
+    frames against run_labeled_inference with ``engine``; returns its
+    pairs."""
+    from smap_tpu_torch.config import Config
+    from smap_tpu_torch.data.datasets import JointDataset, load_annotations
+    from smap_tpu_torch.inference import run_labeled_inference
+
+    out = run_cli("test_smap", "-t", mode, "-d", data_mode, "-p",
+                  sd_path, "--test-json", annot, "--test-root",
+                  frame_dir, "--batch_size", str(BATCH), "--output-dir",
+                  frame_dir)
+    path = os.path.join(frame_dir, f"stage3_root2_{mode}_{data_mode}.json")
+    with open(path) as f:
+        got = json.load(f)
+    stage = "generation" if mode == "generate_train" else "test"
+    dataset = JointDataset(load_annotations(annot), {"MUPOTS": frame_dir},
+                           Config(), stage)
+    want = run_labeled_inference(dataset, engine, mode=mode,
+                                 batch_size=BATCH)
+    err = same_pairs(got["3d_pairs"],
+                     json.loads(json.dumps(want["3d_pairs"])),
+                     f"test_smap {mode}")
+    log(f"{label}: test_smap -t {mode}: {len(got['3d_pairs'])} items equal "
+        f"to run_labeled_inference's (max abs err {err:.3g}), "
+        f"{out.seconds:.1f} s of process")
+    return got["3d_pairs"]
+
+
 def labeled_cli(dev, card: str, sd_path: str, sd, frame_dir: str,
                 frames) -> None:
     """test_smap's generate modes on LABELED_FRAMES of the frames, one
     crafted person each, against run_labeled_inference; then
     train_refinenet for one epoch and test_refinenet on its snapshot."""
     from smap_tpu_torch.config import Config
-    from smap_tpu_torch.data.datasets import JointDataset, load_annotations
-    from smap_tpu_torch.inference import SMAPInference, run_labeled_inference
+    from smap_tpu_torch.inference import SMAPInference
 
-    cfg = Config()
     rng = np.random.RandomState(7)
     annot = labeled_annotations(rng, frame_dir)
-    engine = SMAPInference(sd, cfg, device=dev)
+    engine = SMAPInference(sd, Config(), device=dev)
     pairs = None
     for mode, data_mode in (("generate_result", "test"),
                             ("generate_train", "generation")):
-        out = run_cli("test_smap", "-t", mode, "-d", data_mode, "-p",
-                      sd_path, "--test-json", annot, "--test-root",
-                      frame_dir, "--batch_size", str(BATCH), "--output-dir",
-                      frame_dir)
-        path = os.path.join(frame_dir, f"stage3_root2_{mode}_{data_mode}"
-                                       f".json")
-        with open(path) as f:
-            got = json.load(f)
-        stage = "generation" if mode == "generate_train" else "test"
-        dataset = JointDataset(load_annotations(annot),
-                               {"MUPOTS": frame_dir}, cfg, stage)
-        want = run_labeled_inference(dataset, engine, mode=mode,
-                                     batch_size=BATCH)
-        err = same_pairs(got["3d_pairs"],
-                         json.loads(json.dumps(want["3d_pairs"])),
-                         f"test_smap {mode}")
-        log(f"entry points: test_smap -t {mode}: {len(got['3d_pairs'])} "
-            f"items equal to run_labeled_inference's (max abs err "
-            f"{err:.3g}), {out.seconds:.1f} s of process")
-        pairs = got["3d_pairs"]
+        pairs = generate_cli(engine, sd_path, frame_dir, annot, mode,
+                             data_mode, "entry points")
+
 
     # RefineNet on crafted pairs (random weights match few roots), after
     # the pairs generate_train wrote.
@@ -2076,12 +2125,14 @@ def labeled_cli(dev, card: str, sd_path: str, sd, frame_dir: str,
         f"then test_refinenet: {best}")
 
 
-def train_cli(dev, card: str, frame_dir: str) -> None:
-    """train_smap --deterministic at full width on TRAIN_FRAMES PNG frames
-    (MuCo and COCO records): TRAIN_CLI_STEPS - 1 steps with no worker,
-    then --resume for one more with 4; the losses of Trainer.fit on the
-    same train_iterator in this process, under the same deterministic
-    algorithms; train_iterator's samples/s at 0 and 4 workers."""
+def train_cli(dev, card: str, frame_dir: str, ext: str = "png",
+              resume: bool = True, before=None) -> dict:
+    """train_smap --deterministic at full width on TRAIN_FRAMES frames
+    (``frameNNN.<ext>``; MuCo and COCO records): TRAIN_CLI_STEPS - 1 steps
+    with no worker, then (``resume``) --resume for one more with 4; the
+    losses of Trainer.fit on the same train_iterator, in this process,
+    under the same deterministic algorithms; train_iterator's samples/s at
+    0 and 4 workers (beside ``before``'s). Returns those rates."""
     from smap_tpu_torch.config import Config
     from smap_tpu_torch.data.datasets import (JointDataset, load_annotations,
                                               train_iterator)
@@ -2091,6 +2142,8 @@ def train_cli(dev, card: str, frame_dir: str) -> None:
     cfg = Config()
     rng = np.random.RandomState(8)
     h, w = FRAME_HW
+    steps = TRAIN_CLI_STEPS if resume else TRAIN_CLI_STEPS - 1
+    label = "entry points" if ext == "png" else "jpeg"
     roots, flags = {}, []
     for name, first, count in (("MUCO", 0, 2 * TRAIN_FRAMES // 3),
                                ("COCO", 2 * TRAIN_FRAMES // 3,
@@ -2106,7 +2159,7 @@ def train_cli(dev, card: str, frame_dir: str) -> None:
             bodys[..., 4:7] = rng.randn(people, 15, 3) * 30
             bodys[..., 7:] = [1500.0, 1500.0, w / 2, h / 2]
             records.append({"dataset": name,
-                            "img_paths": f"frame{i:03d}.png",
+                            "img_paths": f"frame{i:03d}.{ext}",
                             "img_height": h, "img_width": w,
                             "isValidation": 0, "bodys": bodys.tolist()})
         annot = os.path.join(frame_dir, f"{name.lower()}.json")
@@ -2124,8 +2177,10 @@ def train_cli(dev, card: str, frame_dir: str) -> None:
     ckpts = sorted(os.listdir(os.path.join(out_dir, "checkpoints")))
     if ckpts != [f"{TRAIN_CLI_STEPS - 1}.pt"]:
         raise AssertionError(f"train_smap checkpoints {ckpts}")
-    second = run_cli("train_smap", *flags, "--max-steps",
-                     str(TRAIN_CLI_STEPS), "--num-workers", "4", "--resume")
+    if resume:
+        second = run_cli("train_smap", *flags, "--max-steps",
+                         str(TRAIN_CLI_STEPS), "--num-workers", "4",
+                         "--resume")
     with open(os.path.join(out_dir, "tb_dir", "metrics.jsonl")) as f:
         got = [json.loads(line) for line in f]
 
@@ -2136,20 +2191,20 @@ def train_cli(dev, card: str, frame_dir: str) -> None:
     ref_dir = os.path.join(frame_dir, "train_ref")
     trainer = Trainer(cfg, TrainerConfig(output_dir=ref_dir, log_every=1,
                                          seed=0), device=dev)
-    batches = train_iterator(dataset, TRAIN_BATCH, TRAIN_CLI_STEPS, seed=0,
+    batches = train_iterator(dataset, TRAIN_BATCH, steps, seed=0,
                              num_workers=4)
     t0 = time.perf_counter()
     with deterministic_algorithms():
-        trainer.fit(batches, state=trainer.init_state(0),
-                    max_steps=TRAIN_CLI_STEPS)
-    fit_rate = TRAIN_CLI_STEPS * TRAIN_BATCH / (time.perf_counter() - t0)
+        trainer.fit(batches, state=trainer.init_state(0), max_steps=steps)
+    fit_rate = steps * TRAIN_BATCH / (time.perf_counter() - t0)
     batches.close()
     trainer.close()
     with open(os.path.join(ref_dir, "tb_dir", "metrics.jsonl")) as f:
         want = [json.loads(line) for line in f]
     keys = ("total_loss", "loss_2d", "loss_bone", "loss_root")
-    steps = list(range(1, TRAIN_CLI_STEPS + 1))
-    if [r["step"] for r in got] != steps or [r["step"] for r in want] != steps:
+    want_steps = list(range(1, steps + 1))
+    if ([r["step"] for r in got] != want_steps
+            or [r["step"] for r in want] != want_steps):
         raise AssertionError(f"train_smap steps {[r['step'] for r in got]}, "
                              f"Trainer.fit {[r['step'] for r in want]}")
     worst = []
@@ -2161,14 +2216,14 @@ def train_cli(dev, card: str, frame_dir: str) -> None:
                                  f"{ {k: g[k] for k in keys} } vs Trainer.fit "
                                  f"{ {k: r[k] for k in keys} }")
         worst.append(rel)
-    log(f"entry points: train_smap --deterministic, {TRAIN_CLI_STEPS - 1} "
-        f"steps ("
-        f"{first.seconds:.1f} s of process) then --resume to step "
-        f"{TRAIN_CLI_STEPS} with 4 workers ({second.seconds:.1f} s): losses "
-        f"of Trainer.fit on the same train_iterator, largest relative "
-        f"difference a step {', '.join(f'{x:.2g}' for x in worst)}; "
-        f"Trainer.fit with 4 workers {fit_rate:.2f} img/s over "
-        f"{TRAIN_CLI_STEPS} steps [{card}]")
+    then = (f" then --resume to step {TRAIN_CLI_STEPS} with 4 workers "
+            f"({second.seconds:.1f} s)" if resume else "")
+    log(f"{label}: train_smap --deterministic on {ext.upper()} frames, "
+        f"{TRAIN_CLI_STEPS - 1} steps ({first.seconds:.1f} s of process)"
+        f"{then}: losses of Trainer.fit on the same train_iterator, largest "
+        f"relative difference a step "
+        f"{', '.join(f'{x:.2g}' for x in worst)}; Trainer.fit with 4 "
+        f"workers {fit_rate:.2f} img/s over {steps} steps [{card}]")
 
     rates = {}
     for workers in (0, 4):
@@ -2183,18 +2238,24 @@ def train_cli(dev, card: str, frame_dir: str) -> None:
         it.close()
     from smap_tpu_torch.data.native import native_available
 
-    log(f"entry points: train_iterator at {FRAME_HW[0]}x{FRAME_HW[1]} "
-        f"(imread, rotate, resize, crop, flip, normalize; the native "
-        f"library: {native_available()}): {rates[0]:.2f} samples/s with "
-        f"no worker, {rates[4]:.2f} with 4 (phase 8's Trainer.fit takes "
-        f"{TRAIN_BATCH} a step) [{card}]")
+    was = (f" (PNG: {before[0]:.2f} and {before[4]:.2f})" if before
+           else "")
+    log(f"{label}: train_iterator at {FRAME_HW[0]}x{FRAME_HW[1]} on "
+        f"{ext.upper()} frames (imread, rotate, resize, crop, flip, "
+        f"normalize; the native libraries: "
+        f"{all(native_available(n) for n in ('preprocess', 'image'))}): "
+        f"{rates[0]:.2f} samples/s with no worker, {rates[4]:.2f} with "
+        f"4{was} (phase 8's Trainer.fit takes {TRAIN_BATCH} a step) "
+        f"[{card}]")
+    return rates
 
 
 def phase_entry_points(dev, card: str, tmp: str):
     """Phase 9: the user's entry points as processes, on PNG frames this
     script writes under ``tmp``. Returns the serve CLI's kernel launches
-    summed over its three modes, and (the weights' path, the weights, the
-    frames' directory) for phase 10."""
+    summed over its three modes, (the weights' path, the weights, the
+    frames' directory) for phases 10-12, and the serve CLI's frames/s by
+    mode and train_iterator's samples/s by workers for phase 12."""
     from smap_tpu_torch.config import Config
 
     frames = cli_frames(CLI_FRAMES)
@@ -2204,11 +2265,11 @@ def phase_entry_points(dev, card: str, tmp: str):
     sd_path = os.path.join(tmp, "smap.pth")
     torch.save({"model": sd}, sd_path)
     paths = host_pipeline(frames, frame_dir, card)
-    launches = serve_cli_modes(dev, card, sd_path, sd, frame_dir, paths,
-                               frames)
+    launches, serve_rates = serve_cli_modes(dev, card, sd_path, sd,
+                                            frame_dir, paths, frames)
     labeled_cli(dev, card, sd_path, sd, frame_dir, frames)
-    train_cli(dev, card, frame_dir)
-    return launches, (sd_path, sd, frame_dir)
+    iter_rates = train_cli(dev, card, frame_dir)
+    return launches, (sd_path, sd, frame_dir), (serve_rates, iter_rates)
 
 
 # Phase 10 (data parallelism and evaluation). (a) DP_RANKS ranks train
@@ -3036,6 +3097,199 @@ def phase_tools(dev, card: str, tmp: str, sd_path: str, sd, frame_dir: str,
     return counted
 
 
+# Phase 12 (JPEG and the native image path): the JPEG fixtures and the
+# manifest cv2 wrote for them on the host that made them
+# (tests/make_torch_jpeg.py); the full-size ones copied under JPEG_FRAMES
+# names for the entry points; the host libraries, built by g++ in phase 1.
+JPEG_FIXTURES = os.path.join(ROOT, "tests", "torch_jpeg")
+JPEG_FRAMES = 32
+HOST_LIBRARIES = ("preprocess", "image", "jpeg")
+
+
+def start_host_builds():
+    """Starts g++ on each native host library (``data.native``), a thread
+    each, beside nvcc; returns a function that waits for them and returns
+    (seconds, {library: error})."""
+    import threading
+
+    from smap_tpu_torch.data import native
+
+    errors = {}
+
+    def one(name):
+        try:
+            native.build(name)
+        except (OSError, subprocess.CalledProcessError) as e:
+            stderr = getattr(e, "stderr", None) or b""
+            errors[name] = f"{e}\n{stderr.decode(errors='replace')}"
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=one, args=(name,))
+               for name in HOST_LIBRARIES]
+    for t in threads:
+        t.start()
+
+    def wait():
+        for t in threads:
+            t.join()
+        return time.perf_counter() - t0, errors
+
+    return wait
+
+
+def ms_of(fn, n: int) -> float:
+    """The median host ms of ``n`` calls of ``fn``."""
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def jpeg_fixtures(card: str):
+    """(b) Every fixture decoded by ``data.image.imread``: the shape and
+    sha256 that cv2 gave (the manifest), None where cv2 gave None; ms a
+    frame of the 1080x1920 ones. Returns their paths."""
+    import hashlib
+
+    from smap_tpu_torch.data.image import imread
+
+    with open(os.path.join(JPEG_FIXTURES, "manifest.json")) as f:
+        manifest = json.load(f)
+    for name, want in sorted(manifest.items()):
+        got = imread(os.path.join(JPEG_FIXTURES, name))
+        entry = None if got is None else {
+            "shape": list(got.shape),
+            "sha256": hashlib.sha256(got.tobytes()).hexdigest()}
+        if entry != want:
+            raise AssertionError(f"jpeg: {name} decodes to {entry}, cv2 "
+                                 f"gave {want}")
+    full = [os.path.join(JPEG_FIXTURES, n) for n in sorted(manifest)
+            if n.startswith("scene_")]
+    times = [f"{os.path.basename(p)} ({os.path.getsize(p) / 1e3:.0f} kB) "
+             f"{ms_of(lambda: imread(p), 5):.2f}" for p in full]
+    log(f"jpeg: {len(manifest)} fixtures decoded to cv2's manifest (shape "
+        f"and sha256; {sum(v is None for v in manifest.values())} None as "
+        f"cv2's); imread ms a {FRAME_HW[0]}x{FRAME_HW[1]} frame (median of "
+        f"5): {', '.join(times)} [{card}]")
+    return full
+
+
+def crop_matrix(m: np.ndarray, canvas, crop_hw) -> np.ndarray:
+    """A composed augmentation's map (``composed_augment_sample``): the
+    rotation ``m`` onto ``canvas``, scaled into the ``crop_hw`` crop with
+    an offset, flipped."""
+    crop_y, crop_x = crop_hw
+    a = np.vstack([m, [0.0, 0.0, 1.0]])
+    scale = min(crop_x / canvas[0], crop_y / canvas[1]) * 1.1
+    a = np.diag([scale, scale, 1.0]) @ a
+    a[:2, 2] += [13.0, -9.0]
+    return (np.array([[-1.0, 0.0, crop_x - 1.0], [0.0, 1.0, 0.0],
+                      [0.0, 0.0, 1.0]]) @ a)[:2]
+
+
+def native_image_ops(img: np.ndarray, card: str) -> None:
+    """(c) On a FRAME_HW frame, the native library's resize (at the
+    letterbox scale and at 0.5), warp (linear and cubic, on the rotation's
+    canvas and on a crop) and PNG unfiltering (every row Average, then
+    Paeth) bit-equal to their numpy versions; ms a frame of each (native:
+    median of 3; numpy: one call)."""
+    from smap_tpu_torch.config import INPUT_SHAPE
+    from smap_tpu_torch.data import image
+    from smap_tpu_torch.data.augmentation import _rotated_canvas
+
+    h, w = img.shape[:2]
+    box = min(INPUT_SHAPE[1] / w, INPUT_SHAPE[0] / h)
+    rot, canvas = _rotated_canvas(h, w, 7.3)
+    crop = crop_matrix(rot, canvas, INPUT_SHAPE)
+    crop_size = (INPUT_SHAPE[1], INPUT_SHAPE[0])
+    rows = {k: filtered_rows(img, k) for k in (3, 4)}
+    cases = {
+        f"resize_linear x{box:.4f}": (image.resize_linear,
+                                      image.resize_linear_numpy,
+                                      (img, box, box)),
+        "resize_linear x0.5": (image.resize_linear,
+                               image.resize_linear_numpy, (img, 0.5, 0.5)),
+    }
+    for interp in ("linear", "cubic"):
+        cases[f"warp_affine {interp} rotation {canvas[0]}x{canvas[1]}"] = (
+            image.warp_affine, image.warp_affine_numpy,
+            (img, rot, canvas, interp))
+        cases[f"warp_affine {interp} crop {crop_size[0]}x{crop_size[1]}"] = (
+            image.warp_affine, image.warp_affine_numpy,
+            (img, crop, crop_size, interp))
+    for kind, name in ((3, "Average"), (4, "Paeth")):
+        cases[f"unfilter {name}"] = (image.unfilter, image.unfilter_numpy,
+                                     (rows[kind], 3))
+    out = []
+    for name, (fast, plain, args) in cases.items():
+        got = fast(*args)
+        t0 = time.perf_counter()
+        want = plain(*args)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        if not (got.shape == want.shape and np.array_equal(got, want)):
+            raise AssertionError(f"jpeg: native {name} differs from numpy")
+        out.append(f"{name} {ms_of(lambda: fast(*args), 3):.2f} / "
+                   f"{plain_ms:.1f}")
+    log(f"jpeg: native image library bit-equal to numpy on a "
+        f"{h}x{w} frame; ms a frame native / numpy (one thread): "
+        + ", ".join(out) + f" [{card}]")
+
+
+def phase_jpeg(dev, card: str, tmp: str, sd_path: str, sd, before,
+               host_build) -> dict:
+    """Phase 12: JPEG and the native image path. (a) the host libraries
+    that phase 1 built here loaded (a numpy fallback fails); (b) the
+    fixtures against cv2's manifest; (c) the library against numpy; (d)
+    the serve CLI over JPEG_FRAMES copies of the full-size fixtures in the
+    default and folded-fused modes, equal to run_batch; (e) test_smap -t
+    generate_result on LABELED_FRAMES of them, equal to
+    run_labeled_inference; (f) train_smap --deterministic, 2 steps on them,
+    equal to Trainer.fit, and train_iterator's rates. ``before``: phase
+    9's serve frames/s and train_iterator rates on PNG. Returns the serve
+    CLI's kernel launches over its two modes."""
+    import shutil
+
+    from smap_tpu_torch.config import Config
+    from smap_tpu_torch.data import native
+    from smap_tpu_torch.data.image import imread
+    from smap_tpu_torch.inference import SMAPInference
+
+    t0 = time.perf_counter()
+    seconds, errors = host_build
+    for name in HOST_LIBRARIES:
+        if name in errors or not native.native_available(name):
+            raise AssertionError(f"jpeg: the native {name} library did not "
+                                 f"build: {errors.get(name)}"
+                                 f"{native.build_error(name)}")
+    log(f"jpeg: native host libraries built here in {seconds:.1f} s (g++, "
+        f"a process each, beside nvcc) and loaded: " + ", ".join(
+            f"{os.path.relpath(native.library_path(n), ROOT)} "
+            f"({' '.join(native.LIBRARIES[n][1])})" for n in HOST_LIBRARIES))
+    full = jpeg_fixtures(card)
+    native_image_ops(imread(full[0]), card)
+
+    frame_dir = os.path.join(tmp, "jpeg_frames")
+    os.makedirs(frame_dir)
+    paths = [os.path.join(frame_dir, f"frame{i:03d}.jpg")
+             for i in range(JPEG_FRAMES)]
+    for i, path in enumerate(paths):
+        shutil.copyfile(full[i % len(full)], path)
+    frames = [imread(p) for p in paths]
+    launches, _ = serve_cli_modes(dev, card, sd_path, sd, frame_dir, paths,
+                                  frames, only=("default", "folded-fused"),
+                                  fmt="JPEG", before=before[0])
+    annot = labeled_annotations(np.random.RandomState(7), frame_dir, "jpg")
+    engine = SMAPInference(sd, Config(), device=dev)
+    generate_cli(engine, sd_path, frame_dir, annot, "generate_result",
+                 "test", "jpeg")
+    del engine
+    train_cli(dev, card, frame_dir, "jpg", resume=False, before=before[1])
+    log(f"jpeg: phase 12 took {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def data_parallel_inputs(tmp: str):
     """What phase 9 leaves for phase 10, made alone: the first
     LABELED_FRAMES frames as PNG with their ``annot.json``, and the
@@ -3077,9 +3331,13 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)}, tf32 {set_tf32(False)}")
 
     t0 = time.perf_counter()
+    host_builds = start_host_builds()
     path, report = kernels.build()
     log(f"build: {time.perf_counter() - t0:.2f} s, nvcc "
         f"{' '.join(kernels.NVCC_FLAGS)} -> {os.path.relpath(path, ROOT)}")
+    host_build = host_builds()
+    log(f"build: native host libraries (g++) {host_build[0]:.2f} s, "
+        f"failed: {sorted(host_build[1]) or 'none'}")
     for line in report.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"build: {line.strip()}")
@@ -3109,12 +3367,15 @@ def main(argv=None) -> int:
     rows["int8_conv"] = int8_row
     phase_training(dev, card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
-        cli_launches, cli_state = phase_entry_points(dev, card, tmp)
+        cli_launches, cli_state, cli_rates = phase_entry_points(dev, card,
+                                                                tmp)
         dp_launches = phase_data_parallel(dev, card, tmp, *cli_state,
                                           batches)
         trace_launches = phase_tools(dev, card, tmp, *cli_state, batches)
+        jpeg_launches = phase_jpeg(dev, card, tmp, *cli_state[:2],
+                                   cli_rates, host_build)
     for key, row in rows.items():
-        row["cli_launches"] = cli_launches[key]
+        row["cli_launches"] = cli_launches[key] + jpeg_launches[key]
         row["dp_launches"] = dp_launches.get(key, 0)
         row["trace_launches"] = trace_launches[key]
     keys = ("name", "route", "source", "replaces", "launches",

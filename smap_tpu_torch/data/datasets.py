@@ -1,6 +1,6 @@
 """Datasets over the unified annotation JSON and the training batch
 iterator (counterpart of ``smap_tpu/data/datasets.py``; numpy on the
-host, no OpenCV for PNG frames).
+host, PNG and JPEG frames read with no OpenCV).
 
 * ``JointDataset`` reads the unified JSON (rows ``[x, y, Z, v, X, Y, Z,
   fx, fy, cx, cy]``), augments on the host (``data.augmentation``),

@@ -1,29 +1,36 @@
 """Host image operations without OpenCV: the port's counterparts of the
 ``cv2`` calls in the JAX package's data path.
 
-Plain numpy on ``[H, W, 3]`` uint8 BGR arrays, each reproducing the
-OpenCV 5.0 function it replaces (``tests/test_torch_image.py`` holds each
-against ``cv2``):
+On ``[H, W, 3]`` uint8 BGR arrays, each reproducing the OpenCV 5.0
+function it replaces (``tests/test_torch_image.py`` and
+``tests/test_torch_jpeg.py`` hold each against ``cv2``). The heavy ones
+run in the native library (``data.native``: ``csrc/jpeg.cc`` and
+``csrc/image.cc``); the numpy versions beside them are their plain
+versions, bit for bit the same, and run where the library cannot be built:
 
 * ``imread``: ``cv2.imread(path, IMREAD_COLOR)``. PNG is decoded here
-  (``zlib`` and numpy); JPEG goes through OpenCV, imported when a JPEG is
-  read, and raises where OpenCV is absent.
+  (``zlib``, the rows unfiltered by the library or ``unfilter_numpy``);
+  JPEG by the native decoder (``decode_jpeg``), which gives libjpeg-turbo's
+  bits and applies the EXIF orientation as OpenCV does. JPEG has no numpy
+  version.
 * ``resize_linear``: ``cv2.resize(img, (0, 0), fx=, fy=)`` with
   ``INTER_LINEAR``, bit for bit: 11-bit fixed-point coefficients, the
   exact integer horizontal pass, and the vertical pass as OpenCV's vector
   code rounds it, which covers every column; at exactly 0.5, OpenCV's
-  area halving.
+  area halving. Plain version: ``resize_linear_numpy``.
 * ``bgr_to_i420``: ``cv2.cvtColor(COLOR_BGR2YUV_I420)``, bit for bit.
 * ``warp_affine``: ``cv2.warpAffine`` with ``BORDER_CONSTANT``: source
   coordinates, weights and sums in float32 as OpenCV's vector code forms
   them. Linear and cubic differ from OpenCV by one grey level on under
   0.2% of the pixels (``tests/test_torch_image.py`` states the bound).
+  Plain version: ``warp_affine_numpy``.
 * ``rotation_matrix_2d`` (``cv2.getRotationMatrix2D``) and
   ``flip_horizontal`` (``cv2.flip(img, 1)``), exact.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 import os
 import struct
@@ -32,7 +39,10 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+from smap_tpu_torch.data import native
+
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_JPEG_SIGNATURE = b"\xff\xd8"
 # PNG colour type -> samples a pixel.
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
@@ -44,30 +54,69 @@ class PngError(ValueError):
 def imread(path: str) -> Optional[np.ndarray]:
     """``[H, W, 3]`` uint8 BGR, or None for a missing or unreadable file.
 
-    The decoder is chosen by the file's extension, never by what is
-    installed: ``.png`` is always decoded here, ``.jpg`` / ``.jpeg``
-    always by OpenCV (an ImportError naming the file where it is absent).
-    Any other extension, and a PNG feature this decoder lacks (interlace),
-    raise ValueError."""
+    ``.png``, ``.jpg`` and ``.jpeg`` files are read, each decoded as what
+    its first bytes say it is (PNG or JPEG), as OpenCV does; anything else
+    gives None. Any other extension, and a feature the decoders lack (an
+    interlaced PNG; an arithmetic-coded, lossless, 12-bit, CMYK or RGB
+    JPEG...) raise ValueError. Where the native JPEG decoder cannot be
+    built, reading a JPEG raises RuntimeError with the build's error."""
     ext = os.path.splitext(path)[1].lower()
     if ext not in (".png", ".jpg", ".jpeg"):
         raise ValueError(f"{path}: no decoder for {ext or 'no extension'!r}"
-                         f" (PNG, or JPEG through OpenCV)")
-    if not os.path.isfile(path):
-        return None
-    if ext == ".png":
-        try:
-            with open(path, "rb") as f:
-                return decode_png(f.read())
-        except (OSError, PngError):
-            return None
+                         f" (PNG or JPEG)")
     try:
-        import cv2
-    except ImportError as e:
-        raise ImportError(f"{path}: reading JPEG needs OpenCV (cv2), which "
-                          f"is not installed; convert the frames to PNG") \
-            from e
-    return cv2.imread(path, cv2.IMREAD_COLOR)
+        with open(path, "rb") as f:
+            data = f.read()
+    except OSError:
+        return None
+    if data.startswith(_PNG_SIGNATURE):
+        try:
+            return decode_png(data)
+        except PngError:
+            return None
+    if data.startswith(_JPEG_SIGNATURE):
+        try:
+            return decode_jpeg(data)
+        except ValueError as e:
+            raise ValueError(f"{path}: {e}") from None
+    return None
+
+
+# EXIF orientation -> (transpose, flip) as OpenCV applies it: flip 1 is
+# horizontal, 0 vertical, -1 both.
+_ORIENTATION = {2: (False, 1), 3: (False, -1), 4: (False, 0),
+                5: (True, None), 6: (True, 1), 7: (True, -1), 8: (True, 0)}
+
+
+def decode_jpeg(data: bytes) -> Optional[np.ndarray]:
+    """JPEG bytes -> ``[H, W, 3]`` uint8 BGR as ``cv2.imread(...,
+    IMREAD_COLOR)`` gives it (EXIF orientation applied), or None where
+    OpenCV gives None. A feature the decoder lacks raises ValueError
+    naming it; a host where the decoder cannot be built, RuntimeError."""
+    lib = native.load("jpeg")
+    if lib is None:
+        raise RuntimeError(f"the native JPEG decoder did not build:\n"
+                           f"{native.build_error('jpeg')}")
+    h, w, orient = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = ctypes.create_string_buffer(256)
+    args = (ctypes.byref(h), ctypes.byref(w), ctypes.byref(orient), err,
+            len(err))
+    rc = lib.jpeg_decode(data, len(data), None, 0, *args)
+    if rc == 0:
+        out = np.empty((h.value, w.value, 3), np.uint8)
+        rc = lib.jpeg_decode(data, len(data), native.u8ptr(out), out.nbytes,
+                             *args)
+    if rc == 1:
+        return None
+    if rc == 2:
+        raise ValueError(f"unsupported JPEG: {err.value.decode()}")
+    transpose, flip = _ORIENTATION.get(orient.value, (False, None))
+    if transpose:
+        out = out.transpose(1, 0, 2)
+    if flip is not None:
+        out = out[:, ::-1] if flip == 1 else (
+            out[::-1] if flip == 0 else out[::-1, ::-1])
+    return np.ascontiguousarray(out)
 
 
 def _png_chunks(data: bytes):
@@ -108,10 +157,26 @@ def _unfilter_paeth(cur: bytearray, prev: bytes, bpp: int) -> None:
         cur[i] = (cur[i] + pred) & 255
 
 
-def _unfilter(raw: np.ndarray, bpp: int) -> np.ndarray:
-    """Filtered scanlines ``[height, 1 + stride]`` -> ``[height, stride]``
-    bytes. None, Sub and Up are whole-row numpy operations; Average and
-    Paeth run byte by byte, each byte depending on the one to its left."""
+def unfilter(raw: np.ndarray, bpp: int) -> np.ndarray:
+    """Filtered scanlines ``[height, 1 + stride]`` uint8 -> ``[height,
+    stride]`` bytes, ``bpp`` bytes a pixel (at least 1), in the native
+    library; ``unfilter_numpy`` where it cannot be built."""
+    lib = native.load("image")
+    if lib is None:
+        return unfilter_numpy(raw, bpp)
+    raw = np.ascontiguousarray(raw, np.uint8)
+    height, stride = raw.shape[0], raw.shape[1] - 1
+    out = np.empty((height, stride), np.uint8)
+    if lib.png_unfilter(native.u8ptr(raw), height, stride, bpp,
+                        native.u8ptr(out)):
+        raise PngError("bad filter type")
+    return out
+
+
+def unfilter_numpy(raw: np.ndarray, bpp: int) -> np.ndarray:
+    """``unfilter`` in numpy: None, Sub and Up are whole-row operations;
+    Average and Paeth run byte by byte, each byte depending on the one to
+    its left."""
     height, stride = raw.shape[0], raw.shape[1] - 1
     types = raw[:, 0]
     if int(types.max(initial=0)) > 4:
@@ -166,8 +231,8 @@ def decode_png(data: bytes) -> np.ndarray:
     if len(raw) < height * (stride + 1):
         raise PngError("truncated image data")
     raw = np.frombuffer(raw, np.uint8)[:height * (stride + 1)]
-    rows = _unfilter(raw.reshape(height, stride + 1),
-                     max(1, channels * depth // 8))
+    rows = unfilter(raw.reshape(height, stride + 1),
+                    max(1, channels * depth // 8))
     if depth == 16:
         px = rows.reshape(height, width, channels, 2)[..., 0]
     elif depth == 8:
@@ -234,21 +299,54 @@ def _half_by_area(img: np.ndarray, dw: int, dh: int) -> np.ndarray:
     return out.astype(np.uint8)
 
 
-def resize_linear(img: np.ndarray, fx: float, fy: float) -> np.ndarray:
-    """``cv2.resize(img, (0, 0), fx=fx, fy=fy)`` (``INTER_LINEAR``) of a
-    ``[H, W, C]`` uint8 image: the output is ``round(W * fx)`` x
-    ``round(H * fy)`` (ties to even), the source coordinate of destination
-    ``d`` is ``(d + 0.5) / f - 0.5``. Same size: a copy; a scale of
-    exactly 0.5 on both axes: OpenCV's area halving."""
+def _resize_plan(img: np.ndarray, fx: float, fy: float):
+    """(output width, height, "copy" | "half" | "linear")."""
     h, w = img.shape[:2]
     dw, dh = int(round(w * fx)), int(round(h * fy))
     if dw <= 0 or dh <= 0:
         raise ValueError(f"resize of {w}x{h} by ({fx}, {fy}) is empty")
     if (dw, dh) == (w, h):
-        return img.copy()
+        return dw, dh, "copy"
     # OpenCV's test: 1 / f within DBL_EPSILON of the integer 2.
     eps = np.finfo(np.float64).eps
     if abs(1.0 / fx - 2) < eps and abs(1.0 / fy - 2) < eps:
+        return dw, dh, "half"
+    return dw, dh, "linear"
+
+
+def resize_linear(img: np.ndarray, fx: float, fy: float) -> np.ndarray:
+    """``cv2.resize(img, (0, 0), fx=fx, fy=fy)`` (``INTER_LINEAR``) of a
+    ``[H, W, C]`` uint8 image: the output is ``round(W * fx)`` x
+    ``round(H * fy)`` (ties to even), the source coordinate of destination
+    ``d`` is ``(d + 0.5) / f - 0.5``. Same size: a copy; a scale of
+    exactly 0.5 on both axes: OpenCV's area halving. In the native
+    library; ``resize_linear_numpy`` where it cannot be built."""
+    dw, dh, mode = _resize_plan(img, fx, fy)
+    lib = native.load("image")
+    if lib is None or img.ndim != 3 or img.dtype != np.uint8:
+        return resize_linear_numpy(img, fx, fy)
+    if mode == "copy":
+        return img.copy()
+    src = np.ascontiguousarray(img)
+    h, w, cn = src.shape
+    out = np.empty((dh, dw, cn), np.uint8)
+    if mode == "half":
+        lib.half_by_area_u8(native.u8ptr(src), h, w, cn, native.u8ptr(out),
+                            dh, dw)
+    else:
+        lib.resize_linear_u8(native.u8ptr(src), h, w, cn, native.u8ptr(out),
+                             dh, dw, 1.0 / fx, 1.0 / fy)
+    return out
+
+
+def resize_linear_numpy(img: np.ndarray, fx: float, fy: float
+                        ) -> np.ndarray:
+    """``resize_linear`` in numpy."""
+    h, w = img.shape[:2]
+    dw, dh, mode = _resize_plan(img, fx, fy)
+    if mode == "copy":
+        return img.copy()
+    if mode == "half":
         return _half_by_area(img, dw, dh)
     xs, xw0, xw1 = _linear_taps(dw, w, 1.0 / fx, clamp=True)
     ys, yw0, yw1 = _linear_taps(dh, h, 1.0 / fy, clamp=False)
@@ -337,6 +435,33 @@ def _cubic_weights(t: np.ndarray):
 
 def warp_affine(img: np.ndarray, m: np.ndarray, size: Tuple[int, int],
                 interp: str = "linear", border: int = 128) -> np.ndarray:
+    """``cv2.warpAffine(img, m, size, flags=INTER_LINEAR | INTER_CUBIC,
+    borderMode=BORDER_CONSTANT, borderValue=(border,) * 3)`` of a
+    ``[H, W, C]`` uint8 image (``warp_affine_numpy`` states the
+    arithmetic); ``size`` is ``(width, height)``. In the native library
+    for up to 4 channels; ``warp_affine_numpy`` where it cannot be
+    built."""
+    if interp not in ("linear", "cubic"):
+        raise ValueError(f"interp {interp!r}: 'linear' or 'cubic'")
+    lib = native.load("image")
+    if (lib is None or img.ndim != 3 or img.dtype != np.uint8
+            or img.shape[2] > 4):
+        return warp_affine_numpy(img, m, size, interp, border)
+    w, h = size
+    src = np.ascontiguousarray(img)
+    src_h, src_w, cn = src.shape
+    minv = np.asarray(_invert_affine(m), np.float64).astype(np.float32)
+    out = np.empty((h, w, cn), np.uint8)
+    lib.warp_affine_u8(native.u8ptr(src), src_h, src_w, cn,
+                       native.u8ptr(out), h, w,
+                       minv.ctypes.data_as(ctypes.POINTER(ctypes.c_float)),
+                       int(interp == "cubic"), int(border))
+    return out
+
+
+def warp_affine_numpy(img: np.ndarray, m: np.ndarray,
+                      size: Tuple[int, int], interp: str = "linear",
+                      border: int = 128) -> np.ndarray:
     """``cv2.warpAffine(img, m, size, flags=INTER_LINEAR | INTER_CUBIC,
     borderMode=BORDER_CONSTANT, borderValue=(border,) * 3)`` of a
     ``[H, W, C]`` uint8 image; ``size`` is ``(width, height)``.

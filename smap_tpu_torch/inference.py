@@ -558,7 +558,7 @@ def run_inference(image_dir: str, state_dict: Mapping[str, torch.Tensor],
                   adaptive_capacities: Optional[Sequence[int]] = None,
                   data_parallel: bool = False) -> Dict[str, Any]:
     """Inference over a directory of images (jpg / png / jpeg, recursive;
-    ``data.image.imread``: PNG needs no OpenCV): letterbox on the host,
+    ``data.image.imread``, no OpenCV): letterbox on the host,
     run the pipeline, return (and optionally write) the reference's result
     JSON. ``quantized``, ``calibration_batches``, ``fuse_stem``,
     ``fuse_bottleneck`` and ``adaptive_capacities`` go to

@@ -3,7 +3,7 @@
 
 * Frames come from an image directory (polled for new ones with
   ``--watch``) or a video file (OpenCV's ``VideoCapture``; OpenCV is
-  needed for video and JPEG only, PNG is decoded without it).
+  needed for video only, PNG and JPEG are decoded without it).
 * Each frame is letterboxed on the host and shipped as packed I420 (1.5
   bytes a pixel), converted and normalized on the device.
 * Batches run through ``SMAPInference.run_stream`` with one batch in

@@ -12,7 +12,7 @@ The result goes to ``<output-dir>/stage3_root2_{mode}_{data_mode}
 {_json_name}.json``. Weights: a reference-layout ``.pth`` (``-p``) or the
 latest checkpoint of a training run (``--ckpt-dir``, the ``--output-dir``
 of ``smap_tpu_torch.train_smap``). Runs on ``--device`` (the card unless
-``cpu`` is asked for). PNG frames need no OpenCV; JPEG does. At the end
+``cpu`` is asked for). PNG and JPEG frames need no OpenCV. At the end
 one JSON line on stderr gives this process's launches of each CUDA
 kernel (A and B once a batch). ``--profile-dir`` traces the inference
 (``utils.profiling.trace``; in a process group, one file a rank).

@@ -2,7 +2,7 @@
 
 Reads unified annotation JSONs (MuCo and/or COCO), augments each sample
 on the host (``data.augmentation``: rotation, fit-scale, crop, flip; PNG
-frames need no OpenCV, JPEG does), and trains on one device with
+and JPEG frames, no OpenCV), and trains on one device with
 ``train.engine.Trainer``: loss lines every ``--log-every`` steps (also in
 ``<output-dir>/tb_dir/metrics.jsonl``), checkpoints in
 ``<output-dir>/checkpoints/<step>.pt``. ``--resume`` continues from the

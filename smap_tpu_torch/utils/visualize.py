@@ -2,8 +2,8 @@
 (counterpart of ``smap_tpu/utils/visualize.py``; the reference's
 ``lib/visualize/vis.py:15-46`` in zju3dv/SMAP).
 
-Reads the image with ``data.image.imread`` (PNG needs no OpenCV; JPEG
-does) and draws with matplotlib, imported when a figure is drawn: the
+Reads the image with ``data.image.imread`` (PNG or JPEG, no OpenCV)
+and draws with matplotlib, imported when a figure is drawn: the
 port needs it for this viewer only.
 """
 

@@ -155,28 +155,29 @@ def small_cli(monkeypatch):
             for k, v in init_smap(SMALL.model, seed=0).state_dict().items()}
 
 
-def _frames_dir(path, n=5, seed=0):
+def _frames_dir(path, n=5, seed=0, ext="png"):
     path.mkdir()
     rng = np.random.RandomState(seed)
     for i in range(n):
         h, w = rng.randint(40, 90), rng.randint(50, 130)
-        cv2.imwrite(str(path / f"f{i}.png"),
+        cv2.imwrite(str(path / f"f{i}.{ext}"),
                     rng.randint(0, 256, (h, w, 3)).astype(np.uint8))
     return str(path)
 
 
-@pytest.mark.parametrize("mode", [[], ["--folded", "--fuse-stem",
-                                       "--fuse-bottleneck"],
-                                  ["--int8"], ["--int8-static"]])
+@pytest.mark.parametrize("mode,ext", [
+    ([], "png"), (["--folded", "--fuse-stem", "--fuse-bottleneck"], "png"),
+    (["--int8"], "png"), (["--int8-static"], "png"), ([], "jpg")])
 def test_serve_cli_matches_run_batch(tmp_path, small_cli,
-                                     people_in_every_frame, mode):
+                                     people_in_every_frame, mode, ext):
     """One JSON line per frame (the tail batch padded), each the item
-    run_batch gives for the same I420 frame, in every serving mode."""
+    run_batch gives for the same I420 frame, in every serving mode, on PNG
+    and on JPEG frames."""
     from smap_tpu_torch import serve
     from smap_tpu_torch.data.image import imread
     from smap_tpu_torch.inference import SMAPInference, image_paths
 
-    src = _frames_dir(tmp_path / "frames")
+    src = _frames_dir(tmp_path / "frames", ext=ext)
     pth = tmp_path / "smap.pth"
     torch.save({"model": {f"module.{k}": v for k, v in small_cli.items()}},
                pth)
@@ -240,20 +241,21 @@ def test_test_smap_run_inference(tmp_path, small_cli, people_in_every_frame):
     assert sum(len(p["pred_3d"]) for p in want["3d_pairs"]) == 10
 
 
-def _labeled_set(tmp_path, n=3):
-    """``n`` PNG frames and their annotation JSON, two people a frame."""
-    src = _frames_dir(tmp_path / "frames", n=n, seed=2)
+def _labeled_set(tmp_path, n=3, ext="png"):
+    """``n`` PNG (or JPEG) frames and their annotation JSON, two people a
+    frame."""
+    src = _frames_dir(tmp_path / "frames", n=n, seed=2, ext=ext)
     records = []
     rng = np.random.RandomState(4)
     for i in range(n):
-        img = cv2.imread(os.path.join(src, f"f{i}.png"))
+        img = cv2.imread(os.path.join(src, f"f{i}.{ext}"))
         h, w = img.shape[:2]
         bodys = np.zeros((2, 15, 11))
         bodys[..., 0] = rng.uniform(0, w, (2, 15))
         bodys[..., 1] = rng.uniform(0, h, (2, 15))
         bodys[..., 2:4] = [300.0, 2.0]
         bodys[..., 7:] = [100.0, 100.0, w / 2, h / 2]
-        records.append({"dataset": "MUPOTS", "img_paths": f"f{i}.png",
+        records.append({"dataset": "MUPOTS", "img_paths": f"f{i}.{ext}",
                         "img_height": h, "img_width": w, "isValidation": 1,
                         "bodys": bodys.tolist()})
     annot = tmp_path / "annot.json"
@@ -261,16 +263,17 @@ def _labeled_set(tmp_path, n=3):
     return src, annot
 
 
+@pytest.mark.parametrize("ext", ["png", "jpg"])
 @pytest.mark.parametrize("mode", ["generate_result", "generate_train"])
 def test_test_smap_generate_modes(tmp_path, small_cli, people_in_every_frame,
-                                  mode):
-    """The generate modes read --test-json / --test-root and write
-    run_labeled_inference's JSON."""
+                                  mode, ext):
+    """The generate modes read --test-json / --test-root (PNG or JPEG
+    frames) and write run_labeled_inference's JSON."""
     from smap_tpu_torch import test_smap
     from smap_tpu_torch.data.datasets import JointDataset, load_annotations
     from smap_tpu_torch.inference import SMAPInference, run_labeled_inference
 
-    src, annot = _labeled_set(tmp_path)
+    src, annot = _labeled_set(tmp_path, ext=ext)
     pth = tmp_path / "smap.pth"
     torch.save(small_cli, pth)
     out = test_smap.main(["-t", mode, "-d", "generation", "-p", str(pth),
@@ -506,6 +509,45 @@ def test_train_smap_distributed_two_ranks(tmp_path, small_cli):
     assert os.listdir(tmp_path / "run1" / "checkpoints") == []
     assert not (tmp_path / "run1" / "tb_dir").exists()
     assert not (tmp_path / "run1" / "log.txt").exists()
+
+
+def test_train_smap_under_torchrun(tmp_path, small_cli):
+    """train_smap --distributed --backend gloo under torchrun (``python -m
+    torch.distributed.run --standalone --nproc-per-node 2``, the entry
+    script tests/torch_dist_workers.py applying the small Config): both
+    ranks end on the parameters of the two spawned ranks of
+    test_train_smap_distributed_two_ranks, on the same data and flags."""
+    import pickle
+
+    from smap_tpu_torch.parallel.distributed import spawn_ranks
+    from torch_dist_workers import cli_rank
+
+    data = _train_set(tmp_path)
+    args = ["--muco-json", data["MUCO"][0], "--muco-root", data["MUCO"][1],
+            "--batch-per-device", "1", "--log-every", "1", "--max-steps",
+            "2"]
+    config = tmp_path / "config.pkl"
+    config.write_bytes(pickle.dumps(SMALL))
+    out = tmp_path / "result"
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT, os.path.join(ROOT, "tests")]))
+    run = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "2",
+         os.path.join(ROOT, "tests", "torch_dist_workers.py"), "train_smap",
+         str(config), str(out), *args, "--output-dir",
+         str(tmp_path / "torchrun")],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stderr[-4000:]
+    got = [json.loads((tmp_path / f"result.rank{r}.json").read_text())
+           for r in range(2)]
+    argvs = [[*args, "--output-dir", str(tmp_path / f"spawned{r}"),
+              "--distributed"] for r in range(2)]
+    want = spawn_ranks(cli_rank, 2, "train_smap", argvs, SMALL,
+                       timeout_s=300)
+    assert [g["step"] for g in got] == [w["step"] for w in want] == [2, 2]
+    assert got[0]["params"] == got[1]["params"] == want[0]["params"]
+    assert os.listdir(tmp_path / "torchrun" / "checkpoints") == ["2.pt"]
 
 
 @pytest.mark.parametrize("module", ["eval_mupots", "eval_panoptic"])

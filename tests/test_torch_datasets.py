@@ -1,5 +1,6 @@
 """The port's datasets, batch iterator and GT registration against the JAX
-package's, on PNG frames: joint tables, validity, scales and epoch orders
+package's (which reads with cv2), on PNG and on JPEG frames: joint tables,
+validity, scales and epoch orders
 exact; images exact where they are only resized and within
 ``warp_affine``'s remainder where rotated."""
 
@@ -26,10 +27,11 @@ INPUT = (64, 96)
 PIXEL_STEP = 1.0 / 255.0 / min(PIXEL_STDS_BGR) + 1e-6
 
 
-@pytest.fixture
-def annotated(tmp_path):
-    """PNG frames of two datasets (MuCo and COCO), train and validation
-    records with two or three people each."""
+@pytest.fixture(params=["png", "jpg"])
+def annotated(tmp_path, request):
+    """Frames of two datasets (MuCo and COCO), PNG or JPEG, train and
+    validation records with two or three people each."""
+    ext = request.param
     rng = np.random.RandomState(0)
     records = []
     for i in range(7):
@@ -38,7 +40,7 @@ def annotated(tmp_path):
         (tmp_path / name).mkdir(exist_ok=True)
         base = rng.randint(0, 256, (h // 4 + 1, w // 4 + 1, 3))
         img = np.repeat(np.repeat(base, 4, 0), 4, 1)[:h, :w].astype(np.uint8)
-        cv2.imwrite(str(tmp_path / name / f"f{i}.png"), img)
+        cv2.imwrite(str(tmp_path / name / f"f{i}.{ext}"), img)
         people = 2 + i % 2
         bodys = np.zeros((people, 15, 11))
         bodys[..., 0] = rng.uniform(-5, w + 5, (people, 15))
@@ -47,7 +49,7 @@ def annotated(tmp_path):
         bodys[..., 3] = rng.choice([0, 1, 2], (people, 15), p=[.1, .2, .7])
         bodys[..., 4:7] = rng.randn(people, 15, 3) * 40
         bodys[..., 7:] = [900.0, 905.0, w / 2, h / 2]
-        records.append({"dataset": name, "img_paths": f"f{i}.png",
+        records.append({"dataset": name, "img_paths": f"f{i}.{ext}",
                         "img_height": h, "img_width": w,
                         "isValidation": int(i >= 5),
                         "bodys": bodys.tolist()})
@@ -85,7 +87,9 @@ def jax_numpy_normalize(monkeypatch):
     when it builds; here both take their numpy fallback, the same
     normalize_image (the libraries are held to each other below)."""
     monkeypatch.setattr(jnative, "_load", lambda: None)
-    monkeypatch.setattr(tnative, "_load", lambda: None)
+    load = tnative.load
+    monkeypatch.setattr(tnative, "load", lambda name="preprocess": (
+        None if name == "preprocess" else load(name)))
 
 
 @pytest.mark.parametrize("with_aug,composed", [(False, False), (True, False),

@@ -1,6 +1,9 @@
 """The port's host image operations (``smap_tpu_torch.data.image``) against
 the OpenCV calls they replace: PNG decoding, the letterbox resize and the
-I420 packing bit for bit; the affine warps within a stated remainder."""
+I420 packing bit for bit; the affine warps within a stated remainder. The
+native library's resize, warp and PNG unfiltering (``csrc/image.cc``)
+bit for bit against their numpy versions, and the numpy fallback where it
+cannot be built. JPEG: tests/test_torch_jpeg.py."""
 
 import math
 import struct
@@ -12,7 +15,7 @@ import pytest
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from smap_tpu_torch.data import image
+from smap_tpu_torch.data import image, native
 
 # warp_affine against cv2.warpAffine: OpenCV's vector code forms the
 # coordinates and sums with fused multiply-adds in an order the numpy
@@ -127,38 +130,16 @@ def test_imread_missing_corrupt_and_unsupported(tmp_path):
         image.imread(str(tmp_path / "adam7.png"))
 
 
-def test_jpeg_goes_through_opencv_and_raises_without_it(tmp_path,
-                                                        monkeypatch):
-    import builtins
-
-    rng = np.random.RandomState(0)
-    path = str(tmp_path / "f.jpg")
-    cv2.imwrite(path, rng.randint(0, 256, (16, 24, 3)).astype(np.uint8))
-    assert np.array_equal(image.imread(path), cv2.imread(path))
-    real_import = builtins.__import__
-
-    def no_cv2(name, *args, **kwargs):
-        if name == "cv2":
-            raise ImportError("No module named 'cv2'")
-        return real_import(name, *args, **kwargs)
-
-    monkeypatch.setattr(builtins, "__import__", no_cv2)
-    with pytest.raises(ImportError, match="f.jpg.*JPEG needs OpenCV"):
-        image.imread(path)
-    # PNG never takes the OpenCV route.
-    png = str(tmp_path / "f.png")
-    (tmp_path / "f.png").write_bytes(_png_bytes(
-        np.zeros((2, 6), np.uint8), 2, 8, 2))
-    assert image.imread(png).shape == (2, 2, 3)
-
-
-def _resize_case(h, w, fx, fy, seed):
-    img = np.random.RandomState(seed).randint(0, 256, (h, w, 3)).astype(
+def _resize_case(h, w, fx, fy, seed, cn=3):
+    img = np.random.RandomState(seed).randint(0, 256, (h, w, cn)).astype(
         np.uint8)
     want = cv2.resize(img, (0, 0), fx=fx, fy=fy)
+    if want.ndim == 2:
+        want = want[..., None]
     got = image.resize_linear(img, fx, fy)
     assert got.shape == want.shape
     assert np.array_equal(got, want), (h, w, fx, fy)
+    assert np.array_equal(image.resize_linear_numpy(img, fx, fy), got)
 
 
 @pytest.mark.parametrize("h,w,net_h,net_w", [
@@ -235,6 +216,7 @@ def _check_warp(img, m, size, interp):
                           borderValue=(128, 128, 128))
     got = image.warp_affine(img, m, size, interp)
     assert got.shape == want.shape
+    assert np.array_equal(image.warp_affine_numpy(img, m, size, interp), got)
     diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
     assert diff.max() <= WARP_MAX_DIFF
     assert (diff > 0).mean() <= WARP_MAX_SHARE
@@ -322,3 +304,80 @@ def test_device_letterbox_normalize_matches_jax(h, w):
     assert np.array_equal(boxed, jboxed) and scale == jscale
     assert np.array_equal(preprocess.normalize_image(boxed),
                           jpre.normalize_image(boxed))
+
+
+@pytest.fixture
+def image_library():
+    assert native.native_available("image"), native.build_error("image")
+
+
+@pytest.mark.parametrize("cn", [1, 3, 4])
+@pytest.mark.parametrize("fx,fy", [(832 / 1920, 832 / 1920), (0.5, 0.5),
+                                   (1.7, 2.3), (4.0, 4.0), (0.26, 0.9)])
+def test_resize_linear_native_equals_numpy_and_cv2(image_library, cn, fx,
+                                                   fy):
+    """The library's resize, bit for bit the numpy version and cv2: the
+    letterbox scale, the area halving, upscales and mixed scales."""
+    for h, w in [(1080, 1920), (37, 91), (2, 3), (101, 77)]:
+        if round(w * fx) >= 1 and round(h * fy) >= 1:
+            _resize_case(h, w, fx, fy, seed=h + cn, cn=cn)
+
+
+@pytest.mark.parametrize("interp", ["linear", "cubic"])
+@pytest.mark.parametrize("cn", [1, 3, 4])
+def test_warp_affine_native_equals_numpy(image_library, interp, cn):
+    """The library's warp, bit for bit the numpy version, over seeded
+    rotations, composed augmentation matrices and random affines, borders
+    included."""
+    rng = np.random.RandomState(cn)
+    for _ in range(6):
+        h, w = rng.randint(1, 160), rng.randint(1, 160)
+        img = rng.randint(0, 256, (h, w, cn)).astype(np.uint8)
+        cases = [_rotation(rng, h, w), _composed(rng, h, w),
+                 (rng.uniform(-2, 2, (2, 3)) * [1, 1, 40],
+                  (int(rng.randint(1, 120)), int(rng.randint(1, 120))))]
+        for m, size in cases:
+            border = int(rng.randint(0, 256))
+            got = image.warp_affine(img, m, size, interp, border)
+            want = image.warp_affine_numpy(img, m, size, interp, border)
+            assert got.shape == want.shape == (size[1], size[0], cn)
+            assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("bpp", range(1, 9))
+def test_unfilter_native_equals_numpy(image_library, bpp):
+    """PNG unfiltering, all five filter types mixed row by row, at every
+    bytes-a-pixel decode_png uses."""
+    rng = np.random.RandomState(bpp)
+    for height, width in [(1, 1), (7, 3), (40, 37)]:
+        raw = rng.randint(0, 256, (height, 1 + bpp * width)).astype(np.uint8)
+        raw[:, 0] = rng.randint(0, 5, height)
+        got = image.unfilter(raw, bpp)
+        assert got.dtype == np.uint8 and got.shape == (height, bpp * width)
+        assert np.array_equal(got, image.unfilter_numpy(raw, bpp))
+    raw[0, 0] = 5
+    for fn in (image.unfilter, image.unfilter_numpy):
+        with pytest.raises(image.PngError, match="filter type"):
+            fn(raw, bpp)
+
+
+def test_image_library_fallback_is_numpy(monkeypatch):
+    """Where the library cannot be built: one warning, then the numpy
+    versions, the same bits."""
+    def no_gxx(name="preprocess"):
+        raise FileNotFoundError("g++")
+
+    rng = np.random.RandomState(0)
+    img = rng.randint(0, 256, (30, 41, 3)).astype(np.uint8)
+    m, size = _rotation(rng, 30, 41)
+    want = (image.resize_linear(img, 0.7, 0.7),
+            image.warp_affine(img, m, size, "cubic"))
+    monkeypatch.setattr(native, "_libs", {})
+    monkeypatch.setattr(native, "_errors", {})
+    monkeypatch.setattr(native, "build", no_gxx)
+    got = (image.resize_linear(img, 0.7, 0.7),
+           image.warp_affine(img, m, size, "cubic"))
+    assert not native.native_available("image")
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    png = _png_bytes(img[..., ::-1].reshape(30, -1), 41, 8, 2)
+    assert np.array_equal(image.decode_png(png), img)

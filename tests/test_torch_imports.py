@@ -89,7 +89,7 @@ def test_port_imports_no_jax():
 
 def _run_without_a_card(script):
     """Runs ``script`` as __main__ with no card visible; checks it imported
-    nothing of JAX and returns the finished process."""
+    nothing of JAX nor OpenCV and returns the finished process."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["CUDA_VISIBLE_DEVICES"] = ""
     code = ("import runpy, sys\n"
@@ -97,7 +97,7 @@ def _run_without_a_card(script):
             f"    runpy.run_path({script!r}, run_name='__main__')\n"
             "except SystemExit as e:\n"
             "    bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-            "                 ('jax', 'jaxlib', 'flax', 'smap_tpu'))\n"
+            "                 ('jax', 'jaxlib', 'flax', 'smap_tpu', 'cv2'))\n"
             "    assert not bad, bad\n"
             "    raise\n")
     return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

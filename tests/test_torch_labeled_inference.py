@@ -1,6 +1,6 @@
 """``run_labeled_inference`` (the ``generate_result`` / ``generate_train``
-modes) of the port against the JAX package's, on a labeled set of PNG
-frames whose people are known in 3D.
+modes) of the port against the JAX package's (which reads with cv2), on
+labeled sets of PNG and of JPEG frames whose people are known in 3D.
 
 Random weights rarely decode a person near a ground-truth root, so both
 engines are fed the ideal maps of each frame's people (``tests/scenes.py``)
@@ -31,13 +31,14 @@ def _frame_key(img: np.ndarray) -> bytes:
     return np.ascontiguousarray(np.asarray(img)[::17, ::29]).tobytes()
 
 
-@pytest.fixture(scope="module")
-def labeled(tmp_path_factory):
+@pytest.fixture(scope="module", params=["png", "jpg"])
+def labeled(tmp_path_factory, request):
     """Frames with 1-2 people each as unified annotation rows ([x, y, Z, v,
     X, Y, Z, fx, fy, cx, cy]; frame 2's rows 8 wide, frame 3's 4 wide, so
     each intrinsics branch runs; frame 1's second person has its root at
     visibility 1 and is dropped), and the ideal network maps of each
     frame."""
+    ext = request.param
     root = tmp_path_factory.mktemp("labeled")
     rng = np.random.RandomState(0)
     records, maps = [], []
@@ -45,7 +46,7 @@ def labeled(tmp_path_factory):
     pad_y = (NET_HW[0] - round(IMG_H * scale)) // 2
     for i in range(N_FRAMES):
         img = rng.randint(0, 256, (IMG_H, IMG_W, 3)).astype(np.uint8)
-        cv2.imwrite(str(root / f"f{i}.png"), img)
+        cv2.imwrite(str(root / f"f{i}.{ext}"), img)
         K, people = make_scene(rng, num_people=1 + i % 2, img_w=IMG_W,
                                img_h=IMG_H, f=FOCAL)
         rows = []
@@ -62,7 +63,7 @@ def labeled(tmp_path_factory):
             rows[1][2, 3] = 1       # root not visible enough: dropped
         rows = np.stack(rows)
         width = {2: 8, 3: 4}.get(i, 11)
-        records.append({"dataset": "MUPOTS", "img_paths": f"f{i}.png",
+        records.append({"dataset": "MUPOTS", "img_paths": f"f{i}.{ext}",
                         "img_height": IMG_H, "img_width": IMG_W,
                         "isValidation": 1,
                         "bodys": rows[..., :width].tolist()})

@@ -58,7 +58,7 @@ def test_matches_opencv_and_numpy(both_built, hw):
 
 
 def test_fallback_is_the_numpy_path(monkeypatch):
-    monkeypatch.setattr(native, "_load", lambda: None)
+    monkeypatch.setattr(native, "load", lambda name="preprocess": None)
     img = _image((90, 70), seed=2)
     assert not native.native_available()
     assert np.array_equal(native.normalize_native(img), normalize_image(img))
@@ -70,11 +70,11 @@ def test_fallback_is_the_numpy_path(monkeypatch):
 
 def test_no_compiler_warns_once(monkeypatch, caplog):
     """A host where the build fails: one warning, then the numpy path."""
-    def no_gxx():
+    def no_gxx(name="preprocess"):
         raise FileNotFoundError("g++")
 
-    monkeypatch.setattr(native, "_lib", None)
-    monkeypatch.setattr(native, "_failed", False)
+    monkeypatch.setattr(native, "_libs", {})
+    monkeypatch.setattr(native, "_errors", {})
     monkeypatch.setattr(native, "build", no_gxx)
     img = _image((20, 30), seed=3)
     with caplog.at_level(logging.WARNING, logger=native.__name__):

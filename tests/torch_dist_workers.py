@@ -3,7 +3,11 @@
 test_torch_cli.py), run in
 fresh processes by ``smap_tpu_torch.parallel.distributed.spawn_ranks``.
 They import no JAX: each joins a gloo group on the CPU, runs what the test
-asks for on its share, and returns numpy results to the test."""
+asks for on its share, and returns numpy results to the test.
+
+Run as a script, this file is an entry point for ``torchrun`` (``python -m
+torch.distributed.run --nproc-per-node N tests/torch_dist_workers.py
+<module> <config.pkl> <out> <args>...``): see ``torchrun_rank``."""
 
 import hashlib
 
@@ -189,3 +193,33 @@ def cli_rank(rank, world, coordinator, module, argvs, cfg, scene=None):
     if hasattr(out, "model"):
         return {"step": out.step, "params": _digest(out.model.parameters())}
     return out
+
+
+def torchrun_rank(module, config_path, out, *args):
+    """This rank of a ``torchrun`` group: ``smap_tpu_torch.<module>.main(
+    [*args, --distributed, --backend gloo, --device cpu])`` (torchrun's
+    env:// rendezvous) with the module's ``Config`` patched to the one
+    pickled at ``config_path``; writes main's result (as ``cli_rank``
+    returns it) to ``<out>.rank<RANK>.json``."""
+    import importlib
+    import json
+    import os
+    import pickle
+
+    with open(config_path, "rb") as f:
+        cfg = pickle.load(f)
+    torch.set_num_threads(1)
+    mod = importlib.import_module(f"smap_tpu_torch.{module}")
+    mod.Config = lambda: cfg
+    res = mod.main([*args, "--distributed", "--backend", "gloo", "--device",
+                    "cpu"])
+    if hasattr(res, "model"):
+        res = {"step": res.step, "params": _digest(res.model.parameters())}
+    with open(f"{out}.rank{os.environ['RANK']}.json", "w") as f:
+        json.dump(res, f)
+
+
+if __name__ == "__main__":
+    import sys
+
+    torchrun_rank(*sys.argv[1:])
