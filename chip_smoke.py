@@ -25,7 +25,8 @@ exits non-zero with no result line):
    512x832, seeded random weights, bf16 compute) on batches of 16
    letterboxed uint8 frames: ``run_batch`` calls and one ``run_stream``
    over 4 batches, with the kernels' launch counts (one A and one B per
-   batch), forward / post ms, img/s and peak memory; one batch decoded
+   batch, 206 of kernel F, the conv epilogue, per forward), forward / post
+   ms, img/s and peak memory; one batch decoded
    again with the plain versions.
 5. fused kernels: kernel C (stem) and kernel D (bottleneck) against their
    plain versions on the card in bf16, at the serving shapes (the stem on
@@ -38,15 +39,16 @@ exits non-zero with no result line):
    same function (``library_ms``).
 6. folded serving: ``SMAPInference(quantized="folded", fuse_stem=True,
    fuse_bottleneck=True)`` at full width on the frames of phase 4, with
-   seeded BatchNorm statistics: 1 stem and 9 bottleneck launches per
-   forward, 1 A and 1 B per decode; forward ms of the folded-fused,
+   seeded BatchNorm statistics: 1 stem, 9 bottleneck and 175 F launches
+   per forward, 1 A and 1 B per decode; forward ms of the folded-fused,
    folded-unfused (cuDNN) and unfolded engines; the folded-fused maps' distance to a float32 forward
    within 2x the unfolded bf16 engine's + 1e-4; one batch decoded end to
    end.
 7. int8 serving: ``SMAPInference(quantized="static")`` calibrated on the
    first batch of phase 4, at full width on its frames: every conv of the
    forward in kernel E, which quantizes its bf16 input itself (206 launches
-   a forward, 1 A and 1 B per decode); E bit-equal to its plain version on
+   a forward, 60 of F for the residual adds and ReLUs, 1 A and 1 B per
+   decode); E bit-equal to its plain version on
    the forward's own conv inputs at all its conv shapes and at ragged ones
    (int8 and bf16 inputs, ties of x / s_x, a clipping scale), each shape
    timed in turns with the plain quantize + E's int8 instance, cuBLASLt's
@@ -55,7 +57,7 @@ exits non-zero with no result line):
    in turns; the int8 maps' distance to a float32 forward within the JAX
    package's int8 gates; the capacity ladder against the full-capacity
    decode.
-8. training (no kernel of A-E on its path; the phase checks that none
+8. training (no kernel of A-F on its path; the phase checks that none
    launched): ``Trainer.fit`` at full width (``Config()``: 512x832,
    3 stages, bf16 compute on float32 parameters, ``TrainConfig()``) on
    seeded batches of ``TRAIN_BATCH`` (normalized images, 1-6 people a
@@ -114,10 +116,11 @@ exits non-zero with no result line):
 11. tools and tracing, on what phase 9 left: (a) ``test_smap -t
    run_inference --profile-dir`` as a process on phase 9's frames: one
    Chrome trace whose device kernels count A and B once a batch, as the
-   process's ``LAUNCHES`` and the ``annotate`` spans, and the JSON of the
-   run without the flag (process seconds of both); (b) one folded-fused
-   ``run_batch`` inside ``utils.profiling.trace``: 1 C, 9 D, 1 A and 1 B
-   (run_batch ms with and without the trace, in turns); (c)
+   process's ``LAUNCHES`` and the ``annotate`` spans, and F 206 times a
+   batch, and the JSON of the run without the flag (process seconds of
+   both); (b) one folded-fused ``run_batch`` inside
+   ``utils.profiling.trace``: 1 C, 9 D, 175 F, 1 A and 1 B (run_batch ms
+   with and without the trace, in turns); (c)
    ``Trainer.fit`` at ``Config()``, batch 8, phase 8's seeded batches,
    deterministic algorithms, 5 steps with a trace of steps 3-4, against
    the untraced run from the same state (twice): losses, weights,
@@ -145,12 +148,22 @@ exits non-zero with no result line):
    ``train_smap --deterministic`` at full width, batch 8, 2 steps on JPEG
    frames, the losses of ``Trainer.fit``; ``train_iterator``'s samples/s
    at 0 and 4 workers beside phase 9's.
+13. the conv epilogue (kernel F; run after phase 7, its frames being
+   phase 4's): one unfolded, folded-fused and int8-static forward each
+   (seeded BatchNorm statistics and biases) with every epilogue recorded
+   (206, 175 and 60 launches), each distinct shape and form held to the
+   plain chain of ops (bit for bit without BatchNorm; with it one bf16
+   ulp apart, more only where its terms cancel, on at most 1e-3 of the
+   elements: ``check_epilogue_case``); the unfolded forward's
+   shapes (batch 16, 256x416 to 16x26) each timed in turns with the chain,
+   beside its bytes bound at 3.35 TB/s, and summed over a forward.
 
 The last lines are the kernels' JSON summary (per kernel: times, launches
 in the main path and per forward or batch, launches in the serve CLI's
 runs of phases 9 and 12 (``cli_launches``), in phase 10's (b) and (c)
 (``dp_launches``) and in phase 11's traces of (a) and (b)
-(``trace_launches``: the trace's device kernels), the least time the card
+(``trace_launches``: the trace's device kernels; F has no ``cli_launches``
+or ``dp_launches``, the CLIs reporting A-E only), the least time the card
 could take at its published peaks, ``bound_ms``, with what bounds it and
 the share of it reached), the card's name and power limit (nvidia-smi), and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -193,6 +206,22 @@ STEM_ATOL, STEM_RTOL = 2e-2, 1e-2
 # flip the bf16 rounding of an intermediate y or z and so move an output
 # by up to two bf16 ulps.
 BLOCK_ATOL, BLOCK_RTOL = 1e-2, 1.6e-2
+# Kernel F (the conv epilogue) against its plain chain: forms without
+# BatchNorm round at the same points, so bit for bit; with it the kernel
+# runs Flax's arithmetic in float32, PyTorch's BatchNorm its own, which
+# lies up to ~250 x 2^-24 of its terms (|(y - mean) * factor| + |shift|)
+# from the exact value on an H100: the bf16 results one ulp apart where
+# the float32 value lies near a rounding point (1e-6 to 5e-5 of a layer's
+# elements), one more of the BatchNorm's value after a residual add, and
+# where the terms cancel up to that float32 error (EPILOGUE_BN_TERMS, twice
+# it) on a small output (tests/test_torch_conv_epilogue.py).
+EPILOGUE_BN_SHARE, EPILOGUE_BN_TERMS = 1e-3, 2.0 ** -15
+EPILOGUE_ITERS = 10
+# F's launches a forward: every conv of the deployment readout (206);
+# folded-fused, less the stem (C) and the 30 convs of D's 9 bottlenecks;
+# int8, the 48 bottlenecks' and 9 upsample units' residual adds and the 3
+# first units' ReLU after kernel E.
+EPILOGUES = {"unfolded": 206, "folded-fused": 175, "int8-static": 60}
 BATCH = 16
 TIMED_BATCHES = 5
 STREAM_BATCHES = 4
@@ -647,6 +676,7 @@ def phase_serving(dev, card: str, batches):
         n_stream += 1
     t_stream = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    epilogues = kernels.EPILOGUE_LAUNCHES
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     n_batches = TIMED_BATCHES + n_stream
     if n_stream != STREAM_BATCHES or launches != {
@@ -655,6 +685,7 @@ def phase_serving(dev, card: str, batches):
         raise AssertionError(f"serving: launches {launches} over "
                              f"{n_batches} batches, want 1 of A and 1 of B "
                              f"per batch")
+    check_epilogues(epilogues, "unfolded", n_batches, "serving")
 
     log(f"serving: forward {np.mean(fwd_ms):.2f} ms, post "
         f"{np.mean(post_ms):.2f} ms per batch of {BATCH} (mean of "
@@ -663,7 +694,8 @@ def phase_serving(dev, card: str, batches):
         f"img/s, run_stream e2e {STREAM_BATCHES * BATCH / t_stream:.1f} img/s"
         f", {people} people decoded in {TIMED_BATCHES} batches, peak memory "
         f"{peak_mb:.0f} MiB [{card}]")
-    log(f"serving: launches {launches} over {n_batches} batches")
+    log(f"serving: launches {launches} over {n_batches} batches; conv "
+        f"epilogue (F) {epilogues}, {EPILOGUES['unfolded']} a forward")
 
     # One batch decoded with the plain versions on the card.
     images, info = engine.place(*batches[0])
@@ -682,7 +714,7 @@ def phase_serving(dev, card: str, batches):
                              f"{err} > {DECODE_ATOL}")
     log(f"serving: plain decode of one batch on the card: counts "
         f"{res_k.count.tolist()} equal, tables max abs err {err:.3g}")
-    return launches
+    return dict(launches, conv_epilogue=epilogues)
 
 
 def check_close(got: torch.Tensor, want: torch.Tensor, atol: float,
@@ -958,14 +990,17 @@ def phase_folded_serving(dev, card: str, batches):
         people += sum(len(p["pred_3d"]) for p in pairs)
     t_batch = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    epilogues = kernels.EPILOGUE_LAUNCHES
     n = len(batches)
     want = {"paf_score": n, "associate": n, "fused_stem": n,
             "fused_bottleneck": 9 * n, "int8_conv": 0}
     if launches != want:
         raise AssertionError(f"folded: launches {launches} over {n} "
                              f"batches, want {want}")
+    check_epilogues(epilogues, "folded-fused", n, "folded")
     log(f"folded: launches {launches} over {n} batches (1 stem, 9 "
-        f"bottleneck, 1 paf_score, 1 associate per batch)")
+        f"bottleneck, 1 paf_score, 1 associate per batch); conv epilogue "
+        f"(F) {epilogues}, {EPILOGUES['folded-fused']} a forward")
     log(f"folded: folded-fused run_batch e2e {n * BATCH / t_batch:.1f} "
         f"img/s, {people} people decoded in {n} batches [{card}]")
 
@@ -1011,7 +1046,7 @@ def phase_folded_serving(dev, card: str, batches):
         raise AssertionError(f"folded: decode counts {counts}, or "
                              f"non-finite tables")
     log(f"folded: one batch decoded end to end, counts {counts}")
-    return launches
+    return dict(launches, conv_epilogue=epilogues)
 
 
 def int8_conv_cases(engine, images):
@@ -1228,6 +1263,7 @@ def phase_int8_serving(dev, card: str, batches):
         people += sum(len(p["pred_3d"]) for p in pairs)
     t_batch = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
+    epilogues = kernels.EPILOGUE_LAUNCHES
     n = len(batches)
     per_forward = sum(k.endswith("act_scale")
                       for k in static.model.state_dict())
@@ -1236,8 +1272,10 @@ def phase_int8_serving(dev, card: str, batches):
     if launches != want:
         raise AssertionError(f"int8: launches {launches} over {n} batches, "
                              f"want {want}")
+    check_epilogues(epilogues, "int8-static", n, "int8")
     log(f"int8: launches {launches} over {n} batches ({per_forward} E, 1 "
-        f"paf_score, 1 associate per batch)")
+        f"paf_score, 1 associate per batch); conv epilogue (F) "
+        f"{epilogues}, {EPILOGUES['int8-static']} a forward")
     log(f"int8: int8-static run_batch e2e {n * BATCH / t_batch:.1f} img/s, "
         f"{people} people decoded in {n} batches [{card}]")
     stage = [static.run_batch_timed(*b)[1] for b in batches]
@@ -1389,7 +1427,184 @@ def phase_int8_serving(dev, card: str, batches):
         f"the golden scenes at rung {ladder._spec_cap}; counts "
         f"{[int(c) for c in refs[0].count[:4]]}... / scenes "
         f"{ladder.postprocess(scene_maps, info).count.tolist()}")
-    return row, launches
+    return row, dict(launches, conv_epilogue=epilogues)
+
+
+def check_epilogues(count: int, mode: str, forwards: int, label: str):
+    """Kernel F launched EPILOGUES[mode] times a forward on the main path."""
+    if count != EPILOGUES[mode] * forwards:
+        raise AssertionError(f"{label}: {count} conv epilogue launches over "
+                             f"{forwards} forwards, want "
+                             f"{EPILOGUES[mode]} a forward")
+
+
+def epilogue_cases(engine, images) -> dict:
+    """One forward of ``engine`` with every conv epilogue recorded:
+    {(shape, bias, bn, residual, relu): [launches of the forward with this
+    key, the block, its conv output before the kernel, the residual, the
+    per-channel values]}, the first launch of each key kept."""
+    from smap_tpu_torch.models.layers import ConvBnRelu
+    from smap_tpu_torch.ops import kernels
+
+    cases, block = {}, [None]
+    launch = kernels.conv_epilogue
+
+    def record(y, params=None, residual=None, *, bias, bn, relu):
+        key = (tuple(y.shape), bias, bn, residual is not None, relu)
+        if key not in cases:
+            cases[key] = [0, block[0], y.clone(),
+                          None if residual is None else residual.clone(),
+                          params]
+        cases[key][0] += 1
+        return launch(y, params, residual, bias=bias, bn=bn, relu=relu)
+
+    handles = [m.register_forward_pre_hook(
+        lambda m, args: block.__setitem__(0, m))
+        for m in engine.model.modules() if isinstance(m, ConvBnRelu)]
+    kernels.conv_epilogue = record
+    try:
+        engine.forward(images)
+        torch.cuda.synchronize()
+    finally:
+        kernels.conv_epilogue = launch
+        for h in handles:
+            h.remove()
+    return cases
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 numbers at |x| (8 significant bits)."""
+    e = torch.floor(torch.log2(x.float().abs().clamp(min=2.0 ** -126)))
+    return torch.exp2(e - 7)
+
+
+def check_epilogue_case(key, case, label: str) -> tuple:
+    """Kernel F against its plain chain on a recorded case: bit for bit
+    without BatchNorm; with it at most one bf16 ulp of the output apart
+    (plus one of the BatchNorm's value where a residual is added after it,
+    and EPILOGUE_BN_TERMS of its terms where they cancel), on at most
+    EPILOGUE_BN_SHARE of the elements. Returns (max abs err, share of
+    elements apart, the chain's arguments)."""
+    from smap_tpu_torch.ops import kernels
+    from smap_tpu_torch.ops.conv_epilogue import conv_epilogue_plain
+
+    _, bias, bn, _, relu = key
+    _, m, y, r, params = case
+    plain_args = (m.conv.bias.to(y.dtype) if bias else None,
+                  m.bn if bn else None, r, relu)
+    with torch.no_grad():
+        got = kernels.conv_epilogue(y.clone(), params, r, bias=bias, bn=bn,
+                                    relu=relu)
+        want = conv_epilogue_plain(y.clone(), *plain_args)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    share = float((diff > 0).float().mean())
+    if not bn:
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label}: kernel F differs from its plain "
+                                 f"chain at {key} on {share:.2e} of the "
+                                 f"elements")
+        return 0.0, 0.0, plain_args
+    with torch.no_grad():
+        yb = kernels.conv_epilogue(y.clone(), params, bias=True, bn=False,
+                                   relu=False).float()
+        value = kernels.conv_epilogue(y.clone(), params, bias=True, bn=True,
+                                      relu=False)
+    p = params[:, :, None, None]
+    terms = ((yb - p[1]) * p[2]).abs() + p[3].abs()
+    bound = (bf16_ulp(torch.maximum(got.float().abs(), want.float().abs()))
+             + EPILOGUE_BN_TERMS * terms)
+    if r is not None:
+        bound += bf16_ulp(value)
+    if not (bool((diff <= bound).all()) and share <= EPILOGUE_BN_SHARE):
+        raise AssertionError(f"{label}: kernel F vs its plain chain at {key}"
+                             f": max abs err {float(diff.max())}, "
+                             f"{float((diff / bound).max()):.3f} of the "
+                             f"bound, {share:.2e} of the elements apart")
+    return float(diff.max()), share, plain_args
+
+
+def phase_epilogue(dev, card: str, batches) -> dict:
+    """Phase 13: kernel F (the conv epilogue) at the forward's own shapes:
+    every epilogue of one unfolded, folded-fused and int8-static forward
+    (seeded BatchNorm statistics and biases) recorded, each distinct shape
+    and form held to the plain chain; the unfolded ones timed in turns
+    with the chain, beside the bytes bound. Returns F's summary row."""
+    from smap_tpu_torch.config import Config
+    from smap_tpu_torch.inference import SMAPInference
+    from smap_tpu_torch.ops import kernels
+    from smap_tpu_torch.ops.conv_epilogue import conv_epilogue_plain
+
+    t0 = time.perf_counter()
+    cfg = Config()
+    sd = perturbed_state_dict(cfg.model, seed=0)
+    frames = batches[0][0]
+    modes = {"unfolded": {}, "folded-fused": dict(
+        quantized="folded", fuse_stem=True, fuse_bottleneck=True),
+        "int8-static": dict(quantized="static", calibration_batches=frames)}
+    errs, shares, rows = [], [], []
+    total = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0)
+    for mode, kw in modes.items():
+        engine = SMAPInference(sd, cfg, device=dev, **kw)
+        images = engine.to_device(frames)
+        cases = epilogue_cases(engine, images)
+        n = sum(c[0] for c in cases.values())
+        if n != EPILOGUES[mode]:
+            raise AssertionError(f"epilogue: {n} launches in a {mode} "
+                                 f"forward, want {EPILOGUES[mode]}")
+        for key, case in cases.items():
+            err, share, plain_args = check_epilogue_case(key, case,
+                                                         f"epilogue {mode}")
+            errs.append(err)
+            shares.append(share)
+            if mode != "unfolded":
+                continue
+            count, _, y, r, params = case
+            _, bias, bn, _, relu = key
+            ys, yp = y.clone(), y.clone()
+            with torch.no_grad():
+                t = in_turns({
+                    "kernel": lambda: kernels.conv_epilogue(
+                        ys, params, r, bias=bias, bn=bn, relu=relu),
+                    "plain": lambda: conv_epilogue_plain(yp, *plain_args)},
+                    EPILOGUE_ITERS, ahead=True)
+            nbytes = ((2 + (r is not None)) * y.numel() * y.element_size()
+                      + (params.numel() * 4 if params is not None else 0))
+            b = bound(t["kernel"], nbytes, 0.0, BF16_FLOPS)
+            rows.append(dict(shape=list(key[0]), form="+".join(
+                name for name, on in zip(("bias", "bn", "residual", "relu"),
+                                         key[1:]) if on),
+                count=count, ms=t["kernel"], plain_ms=t["plain"],
+                bound_ms=b["bound_ms"], share=b["share"],
+                apart=share))
+            total["ms"] += count * t["kernel"]
+            total["plain_ms"] += count * t["plain"]
+            total["bound_ms"] += count * b["bound_ms"]
+            log(f"epilogue: {key[0]} {rows[-1]['form']} x{count}: kernel "
+                f"{t['kernel']:.4f} ms, plain chain {t['plain']:.4f}, bound "
+                f"{b['bound_ms']:.4f} (bytes at 3.35 TB/s), share "
+                f"{b['share']:.3f}; {share:.2e} of the elements apart from "
+                f"the chain [{card}]")
+        log(f"epilogue: {mode}: {n} launches a forward, {len(cases)} "
+            f"shapes and forms, each held to the plain chain (bit for bit "
+            f"without BatchNorm)")
+        del engine, cases
+    log(f"epilogue: over one unfolded forward ({EPILOGUES['unfolded']} "
+        f"launches): kernel {total['ms']:.3f} ms, plain chain "
+        f"{total['plain_ms']:.3f}, bound {total['bound_ms']:.3f}, share "
+        f"{total['bound_ms'] / total['ms']:.3f}; largest share of elements "
+        f"apart with BatchNorm {max(shares):.2e}; phase 13 took "
+        f"{time.perf_counter() - t0:.1f} s [{card}]")
+    return dict(
+        name="conv_epilogue_kernel", route="cuda",
+        source="smap_tpu_torch/csrc/conv_epilogue.cu",
+        replaces="none: XLA fuses the bias, BatchNorm, residual and ReLU "
+                 "into each conv, smap_tpu/models/layers.py:219, :253",
+        max_abs_err=max(errs), ms=total["ms"], plain_ms=total["plain_ms"],
+        bound_ms=total["bound_ms"], bound_by="bytes", bound_kind="memory",
+        share=total["bound_ms"] / total["ms"],
+        library_ms=total["plain_ms"], per="forward of 16 images",
+        epilogues_per_forward=dict(EPILOGUES), shapes=rows)
 
 
 def train_batch(rng: np.random.RandomState, gen: torch.Generator, cfg,
@@ -1780,7 +1995,7 @@ def training_refinenet(dev, card: str) -> None:
 
 
 def phase_training(dev, card: str) -> None:
-    """Phase 8: the training path (no kernel of A-E on it)."""
+    """Phase 8: the training path (no kernel of A-F on it)."""
     from smap_tpu_torch.ops import kernels
 
     kernels.reset_launch_counts()
@@ -1791,7 +2006,9 @@ def phase_training(dev, card: str) -> None:
     training_descent(dev, card)
     training_refinenet(dev, card)
     launched = {k: v for k, v in kernels.LAUNCHES.items() if v}
-    log(f"training: kernels A-E launched by the training phase: "
+    if kernels.EPILOGUE_LAUNCHES:
+        launched["conv_epilogue"] = kernels.EPILOGUE_LAUNCHES
+    log(f"training: kernels A-F launched by the training phase: "
         f"{launched or 'none'}")
     if launched:
         raise AssertionError("the training path launched a serving kernel")
@@ -2801,6 +3018,7 @@ KERNEL_SYMBOLS = {"paf_score": "paf_score_kernel",
                   "fused_stem": "fused_stem_kernel",
                   "fused_bottleneck": "fused_bottleneck_kernel",
                   "int8_conv": "int8_conv_kernel"}
+EPILOGUE_SYMBOL = "conv_epilogue_kernel"
 # (c): Trainer.fit at Config() with the checkpoint period 4 steps (one
 # device, unscaled), log every 2, PROFILE_STEPS steps, the trace over
 # steps (PROFILE_FIRST, PROFILE_FIRST + 2]: the JAX package's cadence
@@ -2823,7 +3041,8 @@ def trace_file(log_dir: str) -> str:
 
 def trace_counts(path: str):
     """(launches of each kernel of A-E among the trace's device kernels,
-    its ``annotate`` spans by kernel, its device kernels in all)."""
+    its ``annotate`` spans by kernel, its device kernels in all, and kernel
+    F's launches and spans)."""
     with open(path) as f:
         events = json.load(f)["traceEvents"]
     device = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
@@ -2831,7 +3050,9 @@ def trace_counts(path: str):
              if e.get("cat") == "user_annotation"]
     return ({k: sum(sym in n for n in device)
              for k, sym in KERNEL_SYMBOLS.items()},
-            {k: spans.count(k) for k in KERNEL_SYMBOLS}, len(device))
+            {k: spans.count(k) for k in KERNEL_SYMBOLS}, len(device),
+            (sum(EPILOGUE_SYMBOL in n for n in device),
+             spans.count("conv_epilogue")))
 
 
 def cli_launches_line(stderr: str) -> dict:
@@ -2868,20 +3089,25 @@ def traced_test_smap(tmp: str, sd_path: str, frame_dir: str,
     batches = -(-frames // BATCH)
     launches = runs["traced"][1]
     path = trace_file(os.path.join(tmp, "tools_prof"))
-    counted, spans, device = trace_counts(path)
+    counted, spans, device, epilogue = trace_counts(path)
     want = dict(paf_score=batches, associate=batches, fused_stem=0,
                 fused_bottleneck=0, int8_conv=0)
     if not (launches == runs["plain"][1] == counted == spans == want):
         raise AssertionError(f"tools: test_smap launches {launches} "
                              f"(plain {runs['plain'][1]}), the trace's "
                              f"kernels {counted}, spans {spans}; want {want}")
+    check_epilogues(epilogue[0], "unfolded", batches, "tools: test_smap")
+    if epilogue[1] != epilogue[0]:
+        raise AssertionError(f"tools: test_smap's trace: {epilogue[0]} F "
+                             f"kernels, {epilogue[1]} spans")
     log(f"tools: test_smap -t run_inference on {frames} frames: "
         f"{runs['plain'][2]:.1f} s of process, {runs['traced'][2]:.1f} s "
         f"with --profile-dir (trace of {device} device kernels, "
         f"{os.path.getsize(path) / 1e6:.1f} MB); the same JSON; A and B "
         f"in the trace {counted['paf_score']} and {counted['associate']}, "
-        f"one each a batch, as LAUNCHES and the annotate spans [{card}]")
-    return counted
+        f"one each a batch, as LAUNCHES and the annotate spans; F "
+        f"{epilogue[0]}, {EPILOGUES['unfolded']} a batch [{card}]")
+    return dict(counted, conv_epilogue=epilogue[0])
 
 
 def traced_folded_batch(dev, tmp: str, sd, batches, card: str) -> dict:
@@ -2908,13 +3134,19 @@ def traced_folded_batch(dev, tmp: str, sd, batches, card: str) -> dict:
     with trace(log_dir):
         res = run()
     launches = dict(kernels.LAUNCHES)
-    counted, spans, device = trace_counts(trace_file(log_dir))
+    counted, spans, device, epilogue = trace_counts(trace_file(log_dir))
     want = dict(paf_score=1, associate=1, fused_stem=1, fused_bottleneck=9,
                 int8_conv=0)
     if not (launches == counted == spans == want):
         raise AssertionError(f"tools: traced folded-fused batch: LAUNCHES "
                              f"{launches}, the trace's kernels {counted}, "
                              f"spans {spans}; want {want}")
+    if not (kernels.EPILOGUE_LAUNCHES == epilogue[0] == epilogue[1]
+            == EPILOGUES["folded-fused"]):
+        raise AssertionError(f"tools: traced folded-fused batch: F "
+                             f"launches {kernels.EPILOGUE_LAUNCHES}, the "
+                             f"trace's kernels and spans {epilogue}; want "
+                             f"{EPILOGUES['folded-fused']}")
     if not all(bool(torch.isfinite(t).all()) for t in res[:3]):
         raise AssertionError("tools: traced folded-fused batch not finite")
     ms = {"plain": [], "traced": []}
@@ -2926,11 +3158,12 @@ def traced_folded_batch(dev, tmp: str, sd, batches, card: str) -> dict:
             ms[name].append((time.perf_counter() - t0) * 1e3)
     log(f"tools: one folded-fused run_batch traced: C {counted['fused_stem']}"
         f", D {counted['fused_bottleneck']}, A {counted['paf_score']}, B "
-        f"{counted['associate']} of {device} device kernels, as LAUNCHES "
-        f"and the annotate spans; run_batch {np.mean(ms['plain']):.2f} ms, "
+        f"{counted['associate']}, F {epilogue[0]} of {device} device "
+        f"kernels, as the launch counts and the annotate spans; run_batch "
+        f"{np.mean(ms['plain']):.2f} ms, "
         f"{np.mean(ms['traced']):.2f} ms traced (host clock, synchronized, "
         f"in turns) [{card}]")
-    return counted
+    return dict(counted, conv_epilogue=epilogue[0])
 
 
 def traced_training(dev, tmp: str, card: str) -> None:
@@ -2990,16 +3223,16 @@ def traced_training(dev, tmp: str, card: str) -> None:
         if not same:
             raise AssertionError(f"tools: Trainer.fit {name} differs from "
                                  f"untraced: losses {got[1]} vs {ref[1]}")
-    counted, spans, device = trace_counts(trace_file(prof_dir))
-    if device == 0 or any(counted.values()):
+    counted, spans, device, epilogue = trace_counts(trace_file(prof_dir))
+    if device == 0 or any(counted.values()) or any(epilogue):
         raise AssertionError(f"tools: the training trace holds {device} "
-                             f"device kernels, A-E {counted}")
+                             f"device kernels, A-E {counted}, F {epilogue}")
     log(f"tools: Trainer.fit at Config(), batch {TRAIN_BATCH}, "
         f"deterministic, {PROFILE_STEPS} steps: traced bit-equal to "
         f"untraced (losses at steps {PROFILE_LOGGED}, "
         f"weights, statistics, Adam), checkpoints {PROFILE_CKPTS}; the "
         f"trace of steps {PROFILE_FIRST + 1}-{PROFILE_FIRST + 2} holds "
-        f"{device} device kernels, none of A-E; ms a step over steps 3-4 "
+        f"{device} device kernels, none of A-F; ms a step over steps 3-4 "
         f"(host clock between the losses read at steps 2 and 4; the "
         f"traced run's include the trace's start and export): " + ", ".join(
             f"{name} {r[0]:.2f}" for name, r in runs.items()) + f" [{card}]")
@@ -3351,6 +3584,7 @@ def main(argv=None) -> int:
     phase_golden(dev)
     batches = serving_batches(Config())
     launches = phase_serving(dev, card, batches)
+    epilogues = launches["conv_epilogue"]
     for key in ("paf_score", "associate"):
         rows[key]["launches"] = launches[key]
         rows[key]["launches_per_forward"] = launches[key] / (
@@ -3365,6 +3599,10 @@ def main(argv=None) -> int:
     int8_row["launches"] = launches["int8_conv"]
     int8_row["launches_per_forward"] = launches["int8_conv"] / len(batches)
     rows["int8_conv"] = int8_row
+    epilogue_row = phase_epilogue(dev, card, batches)
+    epilogue_row["launches"] = epilogues
+    epilogue_row["launches_per_forward"] = epilogues / (TIMED_BATCHES
+                                                        + STREAM_BATCHES)
     phase_training(dev, card)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as tmp:
         cli_launches, cli_state, cli_rates = phase_entry_points(dev, card,
@@ -3378,6 +3616,8 @@ def main(argv=None) -> int:
         row["cli_launches"] = cli_launches[key] + jpeg_launches[key]
         row["dp_launches"] = dp_launches.get(key, 0)
         row["trace_launches"] = trace_launches[key]
+    epilogue_row["trace_launches"] = trace_launches["conv_epilogue"]
+    rows["conv_epilogue"] = epilogue_row
     keys = ("name", "route", "source", "replaces", "launches",
             "launches_per_forward", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "bound_kind", "share", "library_ms")

@@ -16,6 +16,12 @@ int8 quantize, elementwise passes, ...) and the ten largest kernels by
 name. Kernel E quantizes its own input, so an int8 forward shows no
 quantize passes; the dynamic one keeps its abs-max reductions.
 
+``python3 profile_forward.py --sites`` runs only this: the device time of
+one forward of the unfolded, folded-fused and int8-static engines on a
+batch of 16 I420 frames (as the benchmark's serving cells send them), by
+kernel kind and by the aten op the port's code called to launch it
+(``aten::add_`` of a bias, ``aten::batch_norm``, ...).
+
 Then the decode: ``postprocess`` (peaks, kernel A, kernel B, depth, back-
 projection) of the unfolded engine's maps of that batch of 16, the frames
 of ``chip_smoke.py`` phase 4. It prints the synchronized host ms of a
@@ -49,6 +55,7 @@ import torch
 FORWARDS = 3
 DECODES = 3
 KINDS = (   # first match wins
+    ("kernel F (conv_epilogue_kernel)", r"conv_epilogue_kernel"),
     ("kernel E (int8_conv_kernel)", r"int8_conv_kernel"),
     ("kernel D (fused_bottleneck_kernel)", r"fused_bottleneck_kernel"),
     ("kernel C (fused_stem_kernel)", r"fused_stem_kernel"),
@@ -100,14 +107,21 @@ def kind_of(name: str, kinds=KINDS) -> str:
     return "other"
 
 
+# The kernels' ``annotate`` span names (ops/kernels.py), which the device
+# timeline shows beside the kernels.
+SPANS = ("paf_score", "associate", "fused_stem", "fused_bottleneck",
+         "int8_conv", "conv_epilogue")
+
+
 def device_times(prof) -> dict:
     """Kernel name -> [summed device microseconds, launches] over the
-    profiled run."""
+    profiled run (the ``annotate`` spans on the device timeline left
+    out)."""
     from torch.autograd import DeviceType
 
     times = collections.defaultdict(lambda: [0.0, 0])
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        if e.device_type == DeviceType.CUDA and e.name not in SPANS:
             times[e.name][0] += e.time_range.elapsed_us()
             times[e.name][1] += 1
     return times
@@ -217,6 +231,63 @@ def profile_decode(engine, frames, scales, card: str) -> None:
               f"launches  {name[:100]}")
 
 
+def outer_op(e) -> str:
+    """The outermost aten op above a profiled op: the call the port's code
+    made (``aten::add_`` for a bias, ``aten::batch_norm``, ...)."""
+    op = e.name
+    while e.cpu_parent is not None and e.cpu_parent.name.startswith("aten::"):
+        e = e.cpu_parent
+        op = e.name
+    return op
+
+
+def profile_sites(engines: dict, images: torch.Tensor, card: str) -> None:
+    """Device ms and launches of one forward by kind and by the aten op
+    that launched each kernel (the card's profiler records no Python
+    frames, so the op stands for its call sites; the port's own kernels
+    launch through ctypes, under no aten op)."""
+    from torch.autograd import DeviceType
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for name, engine in engines.items():
+        for _ in range(3):
+            engine.forward(images)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=acts) as prof:
+            engine.forward(images)
+            torch.cuda.synchronize()
+        by = collections.defaultdict(lambda: [0.0, 0])
+        kinds = collections.defaultdict(lambda: [0.0, 0])
+        for e in prof.events():
+            # The annotate spans show on the device timeline too; they are
+            # no kernels.
+            if e.device_type == DeviceType.CUDA and e.name not in SPANS:
+                kinds[kind_of(e.name)][0] += e.time_range.elapsed_us()
+                kinds[kind_of(e.name)][1] += 1
+            if (e.device_type == DeviceType.CPU and e.kernels
+                    and e.name.startswith("aten::")):
+                for k in e.kernels:
+                    row = by[(kind_of(k.name), outer_op(e))]
+                    row[0] += k.duration
+                    row[1] += 1
+        for kind, (us, n) in kinds.items():
+            got = [v for (k2, _), v in by.items() if k2 == kind]
+            rest = (us - sum(v[0] for v in got), n - sum(v[1] for v in got))
+            if rest[1]:
+                by[(kind, "(no aten op: ctypes)")] = list(rest)
+        total = sum(us for us, _ in kinds.values())
+        print(f"sites, {name}: {total / 1e3:.3f} device ms in "
+              f"{sum(n for _, n in kinds.values())} launches, one forward of "
+              f"{images.shape[0]} I420 frames (torch.profiler) [{card}]")
+        for kind, (us, n) in sorted(kinds.items(), key=lambda kv: -kv[1][0]):
+            print(f"  {us / 1e3:8.3f} ms  {n:5d} launches  {kind}")
+            for (k2, op), (o_us, o_n) in sorted(by.items(),
+                                                key=lambda kv: -kv[1][0]):
+                if k2 == kind:
+                    print(f"      {o_us / 1e3:8.3f} ms  {o_n:5d}  {op}")
+
+
 def profile_training(card: str) -> None:
     """Device ms by range and kernel kind of one full-width train step."""
     from torch.autograd import DeviceType
@@ -297,7 +368,11 @@ def profile_training(card: str) -> None:
                   f"{k_n / TRAIN_STEPS:5.0f} launches  {kind}")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    args = sys.argv[1:] if argv is None else list(argv)
+    if args not in ([], ["--sites"]):
+        print("usage: python3 profile_forward.py [--sites]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("profile_forward: torch.cuda is not available; this script "
               "needs a CUDA card", file=sys.stderr)
@@ -325,6 +400,15 @@ def main() -> int:
                                      calibration_batches=frames),
         "int8-dynamic": SMAPInference(sd, cfg, device="cuda",
                                       quantized=True)}
+    if args:
+        from smap_tpu_torch.data.preprocess import bgr_to_i420
+
+        i420 = np.stack([bgr_to_i420(f) for f in frames])
+        profile_sites({k: engines[k] for k in ("unfolded", "folded-fused",
+                                                "int8-static")},
+                      engines["unfolded"].to_device(i420), card)
+        print(card)
+        return 0
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     for name, engine in engines.items():

@@ -25,6 +25,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from smap_tpu_torch.ops import kernels
+from smap_tpu_torch.ops.conv_epilogue import (conv_epilogue_plain,
+                                              epilogue_params, use_kernel)
 from smap_tpu_torch.ops.fused_block import (fused_bottleneck,
                                            pack_bottleneck_for_kernel)
 from smap_tpu_torch.ops.int8_conv import (act_absmax, int8_conv2d,
@@ -120,52 +123,6 @@ def frozen_batch_stats(module: nn.Module) -> Iterator[None]:
     finally:
         for m in bns:
             m.frozen = False
-
-
-class ConvBnRelu(nn.Module):
-    """Conv2d (with bias) + BatchNorm (eps 1e-5; by the running statistics
-    in eval mode, by the batch's in train mode) + optional ReLU;
-    ``quant="folded"``: the conv alone, BatchNorm being folded into it;
-    int8 ``quant``: an :class:`Int8Conv` with the ReLU in its epilogue.
-
-    ``padding=None`` is SAME for odd kernels (``k // 2``)."""
-
-    def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
-                 stride: int = 1, padding=None, has_relu: bool = True,
-                 quant: Any = False):
-        super().__init__()
-        if padding is None:
-            padding = kernel_size // 2
-        if quant and quant != "folded":
-            self.conv = Int8Conv(in_ch, out_ch, kernel_size, stride, padding,
-                                 relu=has_relu, static=quant == "static")
-        else:
-            self.conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride=stride,
-                                  padding=padding, bias=True)
-        self.bn = None if quant else BatchNorm2d(out_ch, eps=1e-5,
-                                                 momentum=0.1)
-        self.has_relu = has_relu
-
-    @property
-    def dtype(self) -> torch.dtype:
-        """The dtype this block computes and returns."""
-        c = self.conv
-        return c.out_dtype if isinstance(c, Int8Conv) else c.weight.dtype
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        c = self.conv
-        if isinstance(c, Int8Conv):
-            return c(x)
-        w, b = c.weight, c.bias
-        if w.dtype != x.dtype:   # float32 parameters, a bf16 forward
-            w, b = w.to(x.dtype), b.to(x.dtype)
-        # The bias is added to the conv's result rounded to its dtype, as
-        # the JAX package's Conv2D does (and PyTorch's cuDNN path does on
-        # the card; on the CPU a fused bias would round once, not twice).
-        x = F.conv2d(x, w, None, c.stride, c.padding).add_(b[:, None, None])
-        if self.bn is not None:
-            x = self.bn(x)
-        return F.relu(x) if self.has_relu else x
 
 
 class PackedWeights:
@@ -268,6 +225,78 @@ class Int8Conv(PackedModule):
                            self.out_dtype, packed=packed)
 
 
+class ConvBnRelu(PackedModule):
+    """Conv2d (with bias) + BatchNorm (eps 1e-5; by the running statistics
+    in eval mode, by the batch in train mode) + optional ReLU;
+    ``quant="folded"``: the conv alone, BatchNorm being folded into it;
+    int8 ``quant``: an :class:`Int8Conv` with the ReLU in its epilogue.
+
+    ``padding=None`` is SAME for odd kernels (``k // 2``).
+
+    The conv's epilogue (bias, BatchNorm, a ``residual`` given to
+    :meth:`forward`, the ReLU) is one launch of kernel F
+    (``ops.conv_epilogue``) on the card in eval mode under ``no_grad``, its
+    per-channel values computed once per weight state; otherwise the plain
+    chain of ops."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel_size: int,
+                 stride: int = 1, padding=None, has_relu: bool = True,
+                 quant: Any = False):
+        super().__init__()
+        if padding is None:
+            padding = kernel_size // 2
+        if quant and quant != "folded":
+            self.conv = Int8Conv(in_ch, out_ch, kernel_size, stride, padding,
+                                 relu=has_relu, static=quant == "static")
+        else:
+            self.conv = nn.Conv2d(in_ch, out_ch, kernel_size, stride=stride,
+                                  padding=padding, bias=True)
+        self.bn = None if quant else BatchNorm2d(out_ch, eps=1e-5,
+                                                 momentum=0.1)
+        self.has_relu = has_relu
+        self._packed = PackedWeights(
+            lambda *t: (epilogue_params(*t, eps=1e-5),))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The dtype this block computes and returns."""
+        c = self.conv
+        return c.out_dtype if isinstance(c, Int8Conv) else c.weight.dtype
+
+    def forward(self, x: torch.Tensor,
+                residual: Optional[torch.Tensor] = None,
+                relu: Optional[bool] = None) -> torch.Tensor:
+        """The block on ``x``; a ``residual`` (for a block without a ReLU
+        of its own: a bottleneck's shortcut, an upsample unit's skip) is
+        added after BatchNorm, and then ``relu`` (default ``has_relu``)
+        applies."""
+        relu = self.has_relu if relu is None else relu
+        c = self.conv
+        if isinstance(c, Int8Conv):
+            y = c(x)   # with has_relu's ReLU, in kernel E
+            if residual is None and relu == self.has_relu:
+                return y
+            if use_kernel(self, y):
+                return kernels.conv_epilogue(y, None, residual, bias=False,
+                                             bn=False, relu=relu)
+            return conv_epilogue_plain(y, residual=residual, relu=relu)
+        w, b = c.weight, c.bias
+        if w.dtype != x.dtype:   # float32 parameters, a bf16 forward
+            w, b = w.to(x.dtype), b.to(x.dtype)
+        # The bias is added to the conv's result rounded to its dtype, as
+        # the JAX package's Conv2D does (and PyTorch's cuDNN path does on
+        # the card; on the CPU a fused bias would round once, not twice).
+        y = F.conv2d(x, w, None, c.stride, c.padding)
+        if use_kernel(self, y):
+            bn = self.bn
+            sources = [c.bias] if bn is None else [
+                c.bias, bn.running_mean, bn.running_var, bn.weight, bn.bias]
+            return kernels.conv_epilogue(y, self._packed.get(sources)[0],
+                                         residual, bias=True,
+                                         bn=bn is not None, relu=relu)
+        return conv_epilogue_plain(y, b, self.bn, residual, relu)
+
+
 def _bias(b: torch.Tensor) -> torch.Tensor:
     return b.detach().float().contiguous()
 
@@ -335,10 +364,13 @@ class Bottleneck(PackedModule):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self._fuse_eligible(x):
             return self._fused(x)
-        out = self.conv_bn_relu3(self.conv_bn_relu2(self.conv_bn_relu1(x)))
-        if self.downsample is not None:
-            x = self.downsample(x)
-        return F.relu(out + x)
+        out = self.conv_bn_relu2(self.conv_bn_relu1(x))
+        if self.downsample is None:
+            return self.conv_bn_relu3(out, residual=x, relu=True)
+        # conv3 before the projection, as the chain ran them: its input is
+        # freed before the projection's output is made.
+        out = self.conv_bn_relu3(out)
+        return self.downsample(x, residual=out, relu=True)
 
 
 def to_compute_dtype(module: nn.Module, device: torch.device,

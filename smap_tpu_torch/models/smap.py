@@ -20,7 +20,6 @@ import functools
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
 
@@ -148,10 +147,10 @@ class UpsampleUnit(nn.Module):
         return resize_bilinear(h, self.output_shape)
 
     def forward(self, x, up_x, heads: Heads = (True, True, True)):
-        out = self.u_skip(x)
+        out = self.u_skip(x, relu=self.ind == 0)
         if self.ind > 0:
-            out = out + self.up_conv(resize_bilinear(up_x, self.up_size))
-        out = F.relu(out)
+            out = self.up_conv(resize_bilinear(up_x, self.up_size),
+                               residual=out, relu=True)
         res, res_d, res_rd = (self._head(p, out) if on else None
                               for p, on in zip(("res", "res_d", "res_rd"),
                                                heads))

@@ -10,11 +10,13 @@ returns ``cudaGetLastError()``; the wrappers here raise if it is not 0.
 The wrappers take CUDA tensors only and raise on anything else: the plain
 PyTorch versions live beside their callers (``ops/paf.py``,
 ``ops/association.py``, ``ops/fused_stem.py``, ``ops/fused_block.py``,
-``ops/int8_conv.py``), which choose by device. ``LAUNCHES`` counts the
-launches of each kernel. Each launch runs inside an ``annotate`` span
-named after its ``LAUNCHES`` key (``utils.profiling``), so that a trace
-reads by kernel; the card's own events carry the kernels' symbols
-(``paf_score_kernel``, ``associate_kernel``, ...).
+``ops/int8_conv.py``, ``ops/conv_epilogue.py``), which choose by device.
+``LAUNCHES`` counts the launches of kernels A-E, ``EPILOGUE_LAUNCHES``
+those of the conv epilogue (F), which runs some 200 times a forward. Each
+launch runs inside an ``annotate`` span named after its kernel's key
+(``utils.profiling``), so that a trace reads by kernel; the card's own
+events carry the kernels' symbols (``paf_score_kernel``,
+``associate_kernel``, ...).
 """
 
 from __future__ import annotations
@@ -36,12 +38,13 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("paf_score.cu", "associate.cu", "fused_stem.cu",
-           "fused_bottleneck.cu", "int8_conv.cu")
+           "fused_bottleneck.cu", "int8_conv.cu", "conv_epilogue.cu")
 # -fmad=false: the PAF kernel must round each product and sum as the plain
 # version does (a contracted FMA moves sample points across .5 boundaries
 # and samples across the threshold). No fast math: sqrtf and / stay IEEE.
 # The stem, bottleneck and int8 kernels multiply on the tensor cores, which
-# the flag leaves alone.
+# the flag leaves alone; the conv epilogue's BatchNorm rounds its product
+# and its sum apart, as its emulation in the tests does.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-fmad=false")
 
@@ -66,14 +69,23 @@ STEM_COUT, STEM_ROW = 64, 232
 LAUNCHES: Dict[str, int] = {"paf_score": 0, "associate": 0,
                             "fused_stem": 0, "fused_bottleneck": 0,
                             "int8_conv": 0}
+EPILOGUE_LAUNCHES = 0
+
+# The conv epilogue's form bits (csrc/conv_epilogue.cu), the types it
+# takes, and the most channels its per-channel values may have.
+EPILOGUE_BIAS, EPILOGUE_BN, EPILOGUE_RESIDUAL, EPILOGUE_RELU = 1, 2, 4, 8
+_EPILOGUE_TYPES = (torch.bfloat16, torch.float32)
+MAX_EPILOGUE_CHANNELS = 2048
 
 _lib: Optional[ctypes.CDLL] = None
 _lib_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
+    global EPILOGUE_LAUNCHES
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    EPILOGUE_LAUNCHES = 0
 
 
 def _nvcc() -> str:
@@ -156,6 +168,8 @@ def _load() -> ctypes.CDLL:
             lib.fused_bottleneck_launch.restype = I
             lib.int8_conv_launch.argtypes = [P] * 6 + [I] * 14 + [P]
             lib.int8_conv_launch.restype = I
+            lib.conv_epilogue_launch.argtypes = [P, P, P, I, L64, I, I, P]
+            lib.conv_epilogue_launch.restype = I
             _lib = lib
     return _lib
 
@@ -435,3 +449,71 @@ def int8_conv(x: torch.Tensor, packed: torch.Tensor,
     _raise_on(err, "int8_conv_kernel")
     LAUNCHES["int8_conv"] += 1
     return out
+
+
+def conv_epilogue(y: torch.Tensor, params: Optional[torch.Tensor] = None,
+                  residual: Optional[torch.Tensor] = None, *, bias: bool,
+                  bn: bool, relu: bool) -> torch.Tensor:
+    """``conv_epilogue_kernel``: ``y`` updated in place and returned.
+
+    y [N, C, H, W] bfloat16 or float32, channels-last contiguous on a CUDA
+    device, C <= 2048, fewer than 2^31 elements. In order, each step
+    rounded to y's type: ``bias`` adds ``params[0]`` (rounded to y's type
+    first); ``bn`` applies ``(y - params[1]) * params[2] + params[3]`` in
+    float32; a ``residual`` (y's shape, type and layout, another tensor)
+    is added; ``relu`` clamps at 0. params [4, C] float32 contiguous
+    (``ops.conv_epilogue.epilogue_params``), needed with ``bias`` or ``bn``.
+    """
+    global EPILOGUE_LAUNCHES
+    if y.ndim != 4:
+        raise ValueError("y must be [N, C, H, W]")
+    if y.dtype not in _EPILOGUE_TYPES:
+        raise ValueError(f"conv_epilogue_kernel takes bfloat16 or float32, "
+                         f"not {y.dtype}")
+    if not y.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError("y: expected a channels-last contiguous tensor")
+    c = y.shape[1]
+    if c > MAX_EPILOGUE_CHANNELS or y.numel() >= 2 ** 31:
+        raise ValueError(f"conv_epilogue_kernel takes C <= "
+                         f"{MAX_EPILOGUE_CHANNELS} and < 2^31 elements, got "
+                         f"{tuple(y.shape)}")
+    dev = y.device
+    form = ((EPILOGUE_BIAS if bias else 0) | (EPILOGUE_BN if bn else 0)
+            | (EPILOGUE_RELU if relu else 0))
+    r = None
+    if residual is not None:
+        form |= EPILOGUE_RESIDUAL
+        if residual.dtype != y.dtype or residual.shape != y.shape:
+            raise ValueError(f"residual: expected {y.dtype} "
+                             f"{tuple(y.shape)}, got {residual.dtype} "
+                             f"{tuple(residual.shape)}")
+        if not residual.is_contiguous(memory_format=torch.channels_last):
+            raise ValueError("residual: expected a channels-last contiguous "
+                             "tensor")
+        if residual.device != dev:
+            raise ValueError(f"residual: expected a tensor on {dev}, got "
+                             f"{residual.device}")
+        if residual.data_ptr() == y.data_ptr():
+            raise ValueError("residual: must not be y itself")
+        r = residual.data_ptr()
+    if not form:
+        raise ValueError("conv_epilogue_kernel: nothing to apply")
+    if dev.type != "cuda":
+        raise ValueError(f"conv_epilogue_kernel: expected a CUDA tensor, got "
+                         f"{dev}")
+    p = None
+    if bias or bn:
+        if params is None:
+            raise ValueError("params: needed with bias or bn")
+        _check(params, "params", torch.float32, (4, c), dev)
+        p = params.data_ptr()
+    lib = _load()
+    if y.numel() == 0:
+        return y
+    with torch.cuda.device(dev), annotate("conv_epilogue"):
+        err = lib.conv_epilogue_launch(
+            y.data_ptr(), r, p, c, y.numel(), y.element_size(), form,
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "conv_epilogue_kernel")
+    EPILOGUE_LAUNCHES += 1
+    return y
